@@ -1,10 +1,10 @@
 """Checkpoint / resume of params + optimizer state.
 
 The reference has no model save/load at all (SURVEY.md §5 — training runs
-a fixed iteration count and prints timings).  On TPU this is cheap to add
+a fixed iteration count and prints timings).  In JAX this is cheap to add
 and required for elastic multi-host recovery, so it is a first-class
-capability here.  Orbax is used when importable; a portable npz fallback
-covers minimal environments.
+capability here.  One format: a NumPy .npz of the pytree's leaves, which
+loads on any machine with NumPy.
 """
 from __future__ import annotations
 
@@ -19,52 +19,33 @@ def _flatten(tree):
     return leaves, treedef
 
 
+def _npz_path(path: str) -> str:
+    return path if path.endswith(".npz") else path + ".npz"
+
+
 def save_checkpoint(path: str, params, opt_state=None, step: int = 0) -> str:
-    """Write a checkpoint directory (orbax) or .npz file (fallback)."""
-    try:
-        import orbax.checkpoint as ocp
-
-        path = os.path.abspath(path)
-        ckptr = ocp.PyTreeCheckpointer()
-        payload = {"params": params, "step": np.int64(step)}
-        if opt_state is not None:
-            payload["opt_state"] = opt_state
-        ckptr.save(path, payload, force=True)
-        return path
-    except Exception:
-        leaves, treedef = _flatten(
-            {"params": params, "opt_state": opt_state, "step": step}
-        )
-        arrs = {f"leaf_{i}": np.asarray(l) for i, l in enumerate(leaves) if l is not None}
-        np.savez(path if path.endswith(".npz") else path + ".npz", **arrs)
-        return path if path.endswith(".npz") else path + ".npz"
+    """Write params (+ optimizer state, step) to `path`.npz; returns the
+    file written."""
+    leaves, _ = _flatten({"params": params, "opt_state": opt_state, "step": step})
+    arrs = {f"leaf_{i}": np.asarray(l) for i, l in enumerate(leaves)}
+    out = _npz_path(path)
+    np.savez(out, **arrs)
+    return out
 
 
-def load_checkpoint(path: str, like=None):
+def load_checkpoint(path: str, like):
     """Load a checkpoint saved by save_checkpoint.
 
     like: an example pytree {'params': ..., 'opt_state': ..., 'step': ...}
-    used to restore structure (required for the npz fallback, recommended
-    for orbax).
+    with the structure that was saved; its leaves are replaced by the
+    stored arrays.
     """
-    try:
-        import orbax.checkpoint as ocp
-
-        ckptr = ocp.PyTreeCheckpointer()
-        if like is not None:
-            return ckptr.restore(os.path.abspath(path), item=like)
-        return ckptr.restore(os.path.abspath(path))
-    except Exception:
-        if like is None:
-            raise
-        data = np.load(path if path.endswith(".npz") else path + ".npz")
-        leaves, treedef = _flatten(like)
-        new_leaves = []
-        j = 0
-        for leaf in leaves:
-            if leaf is None:
-                new_leaves.append(None)
-            else:
-                new_leaves.append(data[f"leaf_{j}"])
-                j += 1
-        return jax.tree_util.tree_unflatten(treedef, new_leaves)
+    leaves, treedef = _flatten(like)
+    with np.load(_npz_path(path)) as data:
+        if len(data.files) != len(leaves):
+            raise ValueError(
+                f"checkpoint {path} holds {len(data.files)} arrays; "
+                f"the structure given has {len(leaves)} leaves"
+            )
+        new_leaves = [data[f"leaf_{j}"] for j in range(len(leaves))]
+    return jax.tree_util.tree_unflatten(treedef, new_leaves)

@@ -1,8 +1,8 @@
 """Host-side sparse-graph construction (NumPy).
 
-TPU-native counterpart of the reference's OpenMP CSR machinery
+Counterpart of the reference's OpenMP CSR machinery
 (reference: src/formats/csrc_matrix.h:148-376 `CSRCMatrix::build`,
-src/utils/mtx_sort.h counting sorts).  On TPU the device kernels consume
+src/utils/mtx_sort.h counting sorts).  The device executors consume
 *edge lists sorted by destination row* (plus row pointers), so the
 canonical host format here is a sorted-COO + CSR hybrid:
 
@@ -56,7 +56,7 @@ def coo_to_csr(
     """Build a dst-sorted CSR from a COO edge list (counting sort, O(E)).
 
     Mirrors `CSRCMatrix::build` (reference: src/formats/csrc_matrix.h:148)
-    but keyed on *dst* because TPU aggregation reduces into destination rows.
+    but keyed on *dst* because aggregation reduces into destination rows.
     """
     n_cols = n_rows if n_cols is None else n_cols
     src = np.asarray(src, dtype=np.int64)
@@ -203,7 +203,7 @@ class HostDCSR:
     The reference's DCSR (reference: src/formats/csrc_matrix.h
     `import_dcsr`, CMake `SM_TYPE=3`/`C_COMP`) compresses away empty
     rows — profitable for hypersparse tiles and mask-grown training
-    subgraphs where most rows have no edges.  On TPU the binned-ELL
+    subgraphs where most rows have no edges.  Here the binned-ELL
     layout already skips empty rows on device, so this stays a host
     format (IO / analysis / memory-bounded preprocessing).
     """
@@ -246,7 +246,7 @@ def from_dcsr(d: HostDCSR) -> HostCSR:
 
 
 def densify(g: HostCSR) -> np.ndarray:
-    """Dense (n_rows, n_cols) float32 adjacency — the MXU execution path
+    """Dense (n_rows, n_cols) float32 adjacency — the dense-matmul path
     for small graphs (strategy selection in gala_tpu.ops.spmm)."""
     a = np.zeros((g.n_rows, g.n_cols), dtype=np.float32)
     # += semantics for duplicate edges via np.add.at

@@ -32,8 +32,8 @@ REGISTRY: dict[str, tuple[int, int, int, int]] = {
     "Papers100M": (111_059_956, 1_615_685_872, 128, 172),
     # geometric generator family (reference: src/utils/generator.h
     # generate_rgg2D) with spatial-tile node ids — the locality-bearing
-    # benchmark graph where the fused Pallas bell kernels engage
-    # (staged-row reuse ~4 vs ~0.17 on the R-MAT community stand-ins);
+    # graph (a gather chunk re-reads its source rows ~4x vs ~0.17x on
+    # the R-MAT community stand-ins);
     # e is the expected n*avg_degree at avg_degree 16
     "RGG2D": (1_500_000, 24_000_000, 128, 32),
 }
@@ -58,8 +58,8 @@ def canonical_name(name: str) -> str:
 # it produces; per-name so an RGG tweak doesn't force the expensive
 # R-MAT stand-ins to regenerate mid-queue).  RGG2D v2: spatial ids
 # follow a Morton curve instead of row-major grid order; v3: feats/
-# split draw from an independent rng stream (ADVICE r4 — the shared
-# stream correlated features with positions, i.e. with labels)
+# split draw from an independent rng stream (the shared stream
+# correlated features with positions, i.e. with labels)
 _GEN_VERSION = 1
 _GEN_VERSION_BY_NAME = {"RGG2D": 3}
 

@@ -1,10 +1,10 @@
-"""Row-split ELL layout: the TPU-native sparse format for aggregation.
+"""Row-split ELL layout: a gather-first sparse format for aggregation.
 
-Measured on TPU v5e (see SURVEY.md §6 targets): XLA's row gather runs at
-180-320M rows/s but scatter (segment_sum) is row-rate-bound at ~98M
-rows/s *independent of row width* — so the structure that wins is one
-that keeps the gather (which is wide and partially bandwidth-bound) and
-shrinks the scatter.  Row-split ELL does exactly that:
+The design assumes XLA's row gather is cheaper per row than its scatter
+(segment_sum), which was row-rate-bound *independent of row width* on
+the hardware this was first tuned for (not yet measured on the GPU) —
+so the structure that wins is one that keeps the gather and shrinks
+the scatter.  Row-split ELL does exactly that:
 
 - every destination row is split into ceil(deg/K) *virtual rows* of
   exactly K source slots (phantom slots padded with val=0),
@@ -12,11 +12,10 @@ shrinks the scatter.  Row-split ELL does exactly that:
   (a gather of V*K rows + a dense K-reduction, no scatter),
 - pass 2 scatters only V = N + E/K rows (sorted segment_sum).
 
-This is the TPU answer to the reference's register-coarsened CUDA SpMM
+This is the XLA answer to the reference's register-coarsened CUDA SpMM
 (reference: src/codegen/cuda.h:282-436): the K slots play the role of
-the warp's per-thread neighbor loop, virtual-row splitting plays the
-role of its `_offset` remainder kernels, and the layout doubles as the
-blocked input a future fused Pallas kernel consumes.
+the warp's per-thread neighbor loop, and virtual-row splitting plays the
+role of its `_offset` remainder kernels.
 
 K is chosen per graph from the mean degree (the coarsening analog of the
 input-aware schedule, reference: tests/gala_inference.cpp:127).
@@ -41,9 +40,9 @@ class HostEll:
     k: int
 
 
-# measured TPU v5e row-op rates (rows/s): gather is ~2x the scatter rate
-_GATHER_RATE = 180e6
-_SCATTER_RATE = 98e6
+# cost of one scattered virtual row relative to one gathered slot (an
+# inherited constant; not yet measured on the GPU)
+_SCATTER_COST = 1.84
 
 
 def choose_k(g: HostCSR, k_min: int = 4, k_max: int = 128) -> int:
@@ -58,7 +57,7 @@ def choose_k(g: HostCSR, k_min: int = 4, k_max: int = 128) -> int:
         nv = np.maximum((deg + k - 1) // k, 1)
         slots = int((nv * k).sum())
         v = int(nv.sum())
-        cost = slots / _GATHER_RATE + v / _SCATTER_RATE
+        cost = slots + v * _SCATTER_COST
         if cost < best_cost:
             best_cost, best_k = cost, k
         k *= 2
@@ -124,10 +123,11 @@ def inflation(ell: HostEll, n_edges: int) -> float:
 # --------------------------------------------------------------------------- #
 # Binned ELL (SELL-style): degree-class bins, scatter-free reduction
 # --------------------------------------------------------------------------- #
-# Measured on the v5e (scripts/microbench.py): the XLA row-gather rate is
-# flat in table size and index order (~250-300M rows/s) while the sorted
-# segment-sum scatter runs at only ~95M rows/s.  So the winning layout
-# minimizes *scattered rows*, not locality: group nodes into degree-class
+# Design assumption (inherited, not yet measured on the GPU;
+# scripts/microbench.py measures it): the XLA row-gather rate is flat in
+# table size and index order while the sorted segment-sum scatter is
+# several times slower.  So the layout minimizes *scattered rows*, not
+# locality: group nodes into degree-class
 # bins where every node owns exactly ONE virtual row of width k_b, reduce
 # each bin with a dense reshape-sum (no scatter at all), and keep a tiny
 # segment-sum only for hub nodes with degree > BIN_SIZES[-1].  Self-loop
@@ -170,17 +170,17 @@ class HostBinnedEll:
 class HostStageTables:
     """Per-chunk dedup tables for the staged (two-level) gather.
 
-    Measured on the v5e (scripts/bench_staged_gather.py): a row gather
-    from a table whose physical footprint exceeds ~100MB runs at
-    ~158M rows/s while a gather from a small staged table (kept opaque
-    with lax.optimization_barrier so XLA cannot fold the two gathers
-    back into one) runs at ~435M rows/s.  Deduplicating each chunk's
-    source ids and gathering only the unique rows from the big table
-    (stage 1, slow rate but few rows) then distributing them with a
-    small-table gather (stage 2, fast rate, all slots) wins whenever
-    the per-chunk unique fraction is below ~0.55:
+    Premise (inherited, not yet measured on the GPU;
+    scripts/bench_staged_gather.py measures it): a row gather from a
+    table whose padded footprint exceeds ~100MB is slower per row than a
+    gather from a small staged table (kept opaque with
+    lax.optimization_barrier so XLA cannot fold the two gathers back
+    into one).  Deduplicating each chunk's source ids and gathering only
+    the unique rows from the big table (stage 1, slow rate but few rows)
+    then distributing them with a small-table gather (stage 2, fast
+    rate, all slots) wins whenever
 
-        t_staged / t_plain = uniq_frac + r_slow/r_fast  (~ u + 0.36)
+        t_staged / t_plain = uniq_frac + r_slow/r_fast  < 1
 
     Chunk boundaries are the canonical S_CHUNK slots so the device
     kernel (ops.spmm._bell_bin_reduce) iterates identically."""
@@ -274,7 +274,7 @@ class HostDynMeta:
 
     so the sampled aggregation is the ordinary bell aggregation with
     per-epoch computed slot weights — zero per-epoch index gathers, and
-    the staged/Pallas gather machinery applies unchanged
+    the packed/staged gathers apply unchanged
     (ops.spmm._spmm_dyn_bell).  Slot j of a segment row has in-row
     position pos0 + j (pos0 nonzero only for hub virtual rows).  The
     backward side carries its own meta over the TRANSPOSE rows: the

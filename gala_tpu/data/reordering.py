@@ -8,8 +8,8 @@ reference: tests/common.h:634-699; only the apply-permutation machinery
 is live) — here the live machinery is matched and two practical
 locality orders are provided (degree sort and BFS/RCM).
 
-On TPU reordering matters less than on CPU/GPU caches (the measured
-row-gather rate is insensitive to index locality) but it remains part of
+Reordering changes gather locality (how much cache reuse each sweep
+gets); it also remains part of
 the schedule surface (`dsl.reorder.rabbit` token,
 reference: src/frontend/frontend.l:42) and improves ELL bin packing.
 """

@@ -8,9 +8,9 @@ Clean-room equivalents of the reference's samplers:
   in-kernel sampling formula so data-level and kernel-level sampling
   select identical neighbors.
 
-Kernel-level sampling on TPU is realized the same way — as an index
+Kernel-level sampling is realized the same way — as an index
 transform producing a fixed-degree edge list — because a fixed k per
-node yields exactly the rectangular, static-shape layout TPUs want
+node yields exactly the rectangular, static-shape layout XLA wants
 (it is literally an ELL format).
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Synthetic graph generators (R-MAT, random geometric, planted-label).
 
-TPU-native counterpart of the reference's generators
+Counterpart of the reference's generators
 (reference: src/utils/generator.h:36-365 `generate_rmat`, `generate_rgg2D`).
 Used by tests and by the dataset registry when real OGB/Planetoid npy data
 is absent (this image has no network egress).
@@ -94,10 +94,9 @@ def rgg2d_dataset(
     geometric/mesh dataset export ships with (spatial tiles), and the
     one a locality-preserving reorder (data.reordering.bfs_order, the
     reference's R9 load-time reordering) reconstructs from scratch:
-    measured staged-row reuse 4.2 (spatial sort) vs 3.4 (BFS from
-    random ids) vs 0.14 (random ids) on the dominant degree-class
-    segment.  Above the Pallas break-even (~2), the fused bell kernels
-    engage end-to-end on this family — the planted-community R-MAT
+    gather chunks re-read their source rows about 4x (spatial sort) vs
+    about 3x (BFS from random ids) vs 0.14x (random ids) on the
+    dominant degree-class segment — the planted-community R-MAT
     stand-ins never clear 0.19 because their 'communities' span the
     whole id space.
 
@@ -108,7 +107,7 @@ def rgg2d_dataset(
     # is the exact PCG64 stream that produces pts (below and inside
     # rgg2d_edges), and reusing it would correlate features and split
     # assignment with node positions — which also define the labels —
-    # leaking extra label signal into the accuracy oracle (ADVICE r4)
+    # leaking extra label signal into the accuracy oracle
     rng = np.random.default_rng((seed, 1))
     radius = float(np.sqrt(avg_degree / (np.pi * n)))
     src, dst = rgg2d_edges(n, radius, seed=seed)

@@ -48,7 +48,7 @@ class GraphSchedule:
 class ComputeSchedule:
     """Compute transformations (reference: ComputeTransformType)."""
 
-    coarsen: int = 0            # register/VMEM coarsening factor -> block shape hint
+    coarsen: int = 0            # register coarsening factor -> block shape hint
     sample: int = 0             # kernel-level static sampling
     sample_dynamic: int = 0     # kernel-level per-epoch sampling
 
@@ -62,7 +62,7 @@ class PassFlags:
     sparse_rewrites: bool = True
     training_subgraph: bool = True
     train_code_motion: bool = True
-    # TPU-specific pass: fuse the GAT edge-softmax chain into a single
+    # pass added here: fuse the GAT edge-softmax chain into a single
     # slot-space op (gala_tpu.passes.attention_fusion)
     attention_fusion: bool = True
 
@@ -85,7 +85,7 @@ class ModelSpec:
     print_accuracy: bool = False
     print_memory: bool = False
     use_long: bool = False         # int64 indices (papers100M-scale)
-    # GAT attention heads (TPU extension; the reference DSL is
+    # GAT attention heads (an extension; the reference DSL is
     # single-head).  Heads ride as extra feature columns of the ONE
     # fused slot gather (gala_tpu.ops.attention) — requires the
     # attention_fusion pass and head-divisible layer widths.

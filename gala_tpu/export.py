@@ -2,7 +2,7 @@
 
 The reference's codegen writes a standalone ``./gala_model`` executable
 (reference: src/codegen/cuda.h writeCode -> gala.cu -> nvcc; the driver
-compiles it once and re-runs it without the compiler).  The TPU-native
+compiles it once and re-runs it without the compiler).  The JAX
 analog is ``jax.export``: the jitted training / inference steps
 serialize to StableHLO with platform checks, and the loader replays
 them with numpy + jax only — no parser, IR, passes, or kernel library
@@ -98,15 +98,14 @@ def _load_leaves(path: str, dtypes: dict[str, list[str]]) -> dict[str, list]:
 def export_compiled(
     cm,
     path: str,
-    platforms: tuple[str, ...] = ("cpu", "tpu"),
+    platforms: tuple[str, ...] = ("cpu", "cuda"),
     seed: int = 0,
     chunk: int | None = None,
 ) -> str:
     """Serialize ``cm`` (a lowered CompiledModel) into ``path``.
 
     platforms: lowering targets baked into the artifact.  The default
-    covers the real chip and the CPU fallback; Pallas strategies lower
-    for TPU only — pass ``platforms=("tpu",)`` there.
+    covers the GPU and the CPU.
     chunk: scanned-epoch fusion length (default: valid_step - 1, the
     run length between validation epochs).
     """
@@ -271,16 +270,16 @@ class ExportedModel:
 
         plan = _chunk_plan(iters, valid_step, warmup, K)
         losses, snapshots = [], []
-        mem_mb = 0.0
+        mem_mb, mem_source = 0.0, ""
         timer = EpochTimer()
         loss = None
         for kind, epoch, ln in plan:
             if epoch == warmup:
-                timer.start(fence_on=loss)
+                timer.start((p, loss))
                 if m["print_memory"]:
                     from gala_tpu.train import device_memory_mb
 
-                    mem_mb = device_memory_mb()
+                    mem_mb, mem_source = device_memory_mb()
             if kind == "single":
                 p, o, loss = step(p, o, d)
                 losses.append(loss)
@@ -289,20 +288,20 @@ class ExportedModel:
             else:
                 p, o, loss = chunk_c(p, o, d)
                 losses.append(loss)
-        total_time = timer.stop(loss, n=max(iters - warmup, 1))
+        total_time = timer.stop((p, o, loss), n=max(iters - warmup, 1))
 
         dep = jnp.float32(0.0)
-        fence_on = None
+        outs = []
         for kind, epoch, ln in plan:
             if epoch == warmup:
-                timer.start(fence_on=fence_on)
+                timer.start(outs)
+                outs = []
             if kind == "single":
-                out = fwd(p, d)
-                fence_on = out[0, 0]
+                outs.append(fwd(p, d))
             else:
                 dep = fwdchunk(p, dep, d)
-                fence_on = dep
-        inference_time = timer.stop(fence_on, n=max(iters - warmup, 1))
+                outs.append(dep)
+        inference_time = timer.stop(outs, n=max(iters - warmup, 1))
 
         accs = [float(np.asarray(acc(ps, d))) for ps in snapshots]
         losses_host = np.concatenate(
@@ -317,6 +316,7 @@ class ExportedModel:
             accuracies=accs,
             params=p,
             memory_mb=mem_mb,
+            memory_source=mem_source,
         )
 
     def run(self, iters: int | None = None) -> str:

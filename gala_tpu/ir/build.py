@@ -216,7 +216,7 @@ def generate_ir(spec: ModelSpec) -> Program:
                 # attention_heads(H) widens the per-node score vectors to
                 # (N, H): head h attends feature slice [h*fh, (h+1)*fh)
                 # through the ONE fused slot gather (gala_tpu.ops.attention;
-                # TPU extension — the reference DSL is single-head).  The
+                # an extension — the reference DSL is single-head).  The
                 # FINAL layer stays single-head (standard GAT: heads are
                 # concatenated in hidden layers, not over class logits).
                 nh = max(int(spec.attention_heads), 1)

@@ -63,7 +63,7 @@ class ComputeOp(enum.Enum):
     ONES = "ones"
     EPSILON = "epsilon"
     FULL = "full"
-    # TPU-specific fusion product (gala_tpu.passes.attention_fusion):
+    # fusion product added here (gala_tpu.passes.attention_fusion):
     # SDDVV-add + leaky-relu + edge-softmax + SpMM-with-values as one
     # slot-space op (gala_tpu.ops.attention)
     FUSED_ATTENTION = "fused_attention"
@@ -179,8 +179,7 @@ def aggregated_widths(prog: Program, feat_size: int, n_classes: int) -> list[int
     shrinking FFN before the aggregation, so e.g. a 260-feature GCN
     aggregates 32/41-wide tensors).  These widths — not the widest layer
     anywhere in the model — are what size the gather table, and with it
-    the input-aware strategy gate and the Pallas kernels' VMEM budget
-    (lowering/lower.py).  Symbolic dims resolve against the bound
+    the col_tile memory gate (lowering/lower.py).  Symbolic dims resolve against the bound
     dataset; non-positive leftovers fall back to max(feat, classes)."""
     from gala_tpu.ir.data_ir import SYM_CLASSES, SYM_FEATS
 

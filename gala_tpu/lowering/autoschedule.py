@@ -8,10 +8,10 @@ directives.  The reference sets coarsen=2 always and col_tile = nrows/5
 when density > 0.001; the claim is schedules within 10% of hand-tuned
 (reference: docs PDF §3.6).
 
-On TPU the knobs are different: the decision that matters is the SpMM
-execution strategy (dense MXU vs segment vs scanned-segment — see
+Here the knobs are different: the decision that matters is the SpMM
+execution strategy (dense matmul vs binned ELL vs segment — see
 gala_tpu.ops.graph.choose_strategy) plus the scan chunk (the col-tile
-analog) and block coarsening for the Pallas path.  The degree-entropy
+analog).  The degree-entropy
 signal the reference computes but does not use (reference:
 src/ops/approx.h:188-226 `approx_vert_entr`) is exposed for schedule
 decisions too.
@@ -44,13 +44,12 @@ def autoschedule(spec: ModelSpec, g: HostCSR, n_feats: int, n_classes: int) -> M
         spec.output_sizes[-1] = n_classes
 
     # reference heuristic: coarsen=2 always; col_tile nrows/5 when
-    # density > 0.001.  On TPU the coarsen analog (binned-ELL blocking)
+    # density > 0.001.  Here the coarsen analog (binned-ELL blocking)
     # is kept, but col_tile is NOT emitted: forcing the chunked paths
-    # below the memory budget is a measured LOSS on this hardware
-    # (results_r3/stat_table5.csv, Reddit-0.25: dir 1.36s vs none 0.78s
-    # inference — schedule-driven chunking exists for memory, not speed,
-    # and the executor already chunks by budget when buffers would not
-    # fit).  Strategy selection from the real graph (density, size,
+    # below the memory budget was a LOSS where this was first tuned (not
+    # yet measured on the GPU) — schedule-driven chunking exists for
+    # memory, not speed, and the executor already chunks by budget when
+    # buffers would not fit).  Strategy selection from the real graph (density, size,
     # edge-value needs) happens at lowering via choose_strategy either
     # way, so opt_input's job here is sizes + coarsening only.
     spec.compute.coarsen = max(spec.compute.coarsen, 2)

@@ -4,7 +4,7 @@ This is the codegen stage.  Where the reference emits CUDA/libtorch text
 (reference: src/codegen/common.h `generateOpCode`, cuda.h kernel strings)
 that nvcc compiles, here each ComputeNode maps to a JAX op and **XLA is
 the compiler**: the returned `forward` is traced once under `jax.jit`,
-fused, and scheduled for the MXU — the role the reference's generated
+fused, and scheduled by XLA — the role the reference's generated
 `gala.cu` plays.
 
 Contract (shared with gala_tpu.train.train):
@@ -160,7 +160,7 @@ def _eval_node(node: ComputeNode, env, params, graphs):
             from gala_tpu.parallel.tp import MODEL_AXIS
             # TP row-split closing matmul: each model shard holds a
             # feature-slice of the input and the matching weight rows;
-            # one psum over ICI restores replication, bias added once
+            # one psum restores replication, bias added once
             from gala_tpu.models.common import MATMUL_PRECISION
 
             p = params[w.name]

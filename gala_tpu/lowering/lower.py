@@ -1,6 +1,6 @@
 """Lowering: ModelSpec -> optimized IR -> executable CompiledModel.
 
-The TPU-native equivalent of the reference driver pipeline
+The JAX equivalent of the reference driver pipeline
 (reference: tests/gala_train.cpp:65-151 — parse, input-aware schedule,
 generate_ir, 4 passes, CUDAGenerator::writeCode): same stages, but the
 "emitted program" is a jitted JAX training step instead of a gala.cu file.
@@ -23,7 +23,7 @@ from gala_tpu.ir.compute_ir import ComputeOp, Program
 from gala_tpu.ir.data_ir import SYM_CLASSES, SYM_FEATS
 from gala_tpu.lowering.autoschedule import autoschedule
 from gala_tpu.lowering.interp import make_forward, make_init_params
-from gala_tpu.ops.graph import NODE_PAD, Graph
+from gala_tpu.ops.graph import NODE_PAD, Graph, check_strategy
 from gala_tpu.passes.pipeline import run_passes
 from gala_tpu.train import TrainResult, train
 
@@ -140,6 +140,7 @@ def lower(
     mode: 'train' or 'inference' — selects the reference's driver pass
     matrix (tests/gala_train.cpp vs gala_inference.cpp).
     """
+    check_strategy(strategy)
     # ---- dataset ---------------------------------------------------- #
     if data is None:
         data = load_dataset(spec.dataset, data_root=data_root, scale=scale, seed=seed)
@@ -206,15 +207,11 @@ def lower(
     if strategy == "auto":
         from gala_tpu.ops.graph import choose_strategy
 
-        # the gather-cliff gate inside choose_strategy compares the
-        # PHYSICAL table the executor will actually gather from
-        # (defaulting feat_dim=128 here made wide-feature models look
-        # wrong-sized, so the strategy gate mis-fired — r4 fix)
         strategy = choose_strategy(
             g_host.n_rows + NODE_PAD, g_host.n_cols + NODE_PAD,
-            g_host.n_edges, edge_vals=edge_vals, feat_dim=agg_w,
+            g_host.n_edges, edge_vals=edge_vals,
         )
-    if strategy in ("bell", "pallas_bell"):
+    if strategy == "bell":
         # relabel nodes in degree-class order so the binned layout's
         # output order is the identity (zero-cost at run time) — the
         # reference's degree reordering applied at load
@@ -241,26 +238,26 @@ def lower(
     # whenever the reweighted path will serve
     keep_edges = (
         True
-        if spec.compute.sample_dynamic and strategy not in ("bell", "pallas_bell")
+        if spec.compute.sample_dynamic and strategy != "bell"
         else "auto"
     )
     # DIR ordered column tiling: the schedule's col_tile directive
     # reaches the executor as the chunk granularity of the
     # scan/bell/attention paths (reference: src/ops/tiling.h:222-284 +
-    # src/codegen/cuda.h:470-497).  TPU memory gate — same decision the
+    # src/codegen/cuda.h:470-497).  Memory gate — same decision the
     # input-aware autoschedule makes (lowering/autoschedule.py): the
     # hand directive is honored only when it TIGHTENS memory below the
     # executor's own budget-driven chunking.  Dropped when (a) the
     # widest layer's flat slot intermediate already fits the flat
-    # budget (chunking at all is a measured loss: stat_table5 dir
-    # 1.36s vs none 0.78s on Reddit-0.25), or (b) the directive's
-    # implied chunk is COARSER than the memory budget's pick — the
-    # budget already caps chunk liveness, so a coarser hand tile buys
-    # nothing and measured 29% worse (r4 stat_table5 Reddit `all`
-    # 0.417s vs `cir` 0.322s, VERDICT r4 weak #6).
+    # budget (chunking at all was a loss where this gate was first
+    # tuned), or (b) the directive's implied chunk is COARSER than the
+    # memory budget's pick — the budget already caps chunk liveness, so
+    # a coarser hand tile buys nothing.  The budgets count 128-lane
+    # padded columns (_phys_cols): inherited, not yet measured on the
+    # GPU.
     # GALA_FORCE_COL_TILE=1 honors it regardless (the DIR ablation).
     # The gate result stays LOCAL (col_tile_eff): lower() never
-    # mutates the caller's parsed spec (ADVICE r4).
+    # mutates the caller's parsed spec.
     col_tile_eff = spec.col_tile
     if col_tile_eff and os.environ.get("GALA_FORCE_COL_TILE", "") != "1":
         from gala_tpu.ops.spmm import (
@@ -276,18 +273,10 @@ def lower(
             col_tile_eff = 0
     if use_long:
         spec.use_long = True
-    # pallas_bell: budget the kernels' VMEM chunking for the widest
-    # tensor any aggregation sweep gathers (backward attention gathers
-    # [dout | vr | m | s | sds] rows: the agg_w above already carries
-    # the 4 score columns per head)
-    pallas_feat = 128
-    if strategy == "pallas_bell":
-        pallas_feat = agg_w
     full_g = Graph.from_host(
         g_host, strategy=strategy, undirected=spec.graph.undirected,
         edge_vals=edge_vals, attention=attention, keep_edges=keep_edges,
         col_tile=col_tile_eff or None, long_indices=spec.use_long,
-        pallas_feat=pallas_feat,
         dynamic_sample=bool(spec.compute.sample_dynamic),
     )
     n_layers = spec.num_layers
@@ -303,7 +292,6 @@ def lower(
                 edge_vals=edge_vals,
                 attention=attention, keep_edges=keep_edges,
                 col_tile=col_tile_eff or None,
-                pallas_feat=pallas_feat,
                 dynamic_sample=bool(spec.compute.sample_dynamic),
             )
             for s in subs
@@ -311,8 +299,8 @@ def lower(
 
     x = full_g.pad_nodes(feats)
     if dtype is not None:
-        # mixed precision: bf16 activations double the TPU row-gather
-        # rate; params/loss stay f32 (see ops/spmm._ell_raw)
+        # mixed precision: bf16 activations halve the bytes every
+        # gather moves; params/loss stay f32 (see ops/spmm._ell_raw)
         x = x.astype(dtype)
     y = full_g.pad_nodes(labels)
     tm = full_g.pad_nodes(masks["train"])

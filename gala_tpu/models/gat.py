@@ -41,7 +41,7 @@ def _attn_vec_init(rng: jax.Array, n_heads: int, fh: int):
 def _head_scores(p, res, n_heads):
     """(N, H) per-head scores: score[n, h] = res[n, h*fh:(h+1)*fh] @ w[h] + b[h].
     Contraction over fh with H as a (tiny, static) batch — NOT the
-    catastrophic (n,k,f)x(n,f) shape (docs/PERF_NOTES.md)."""
+    (n,k,f)x(n,f) shape that lowers to n tiny batched matmuls."""
     n = res.shape[0]
     fh = res.shape[1] // n_heads
     r3 = res.reshape(n, n_heads, fh)

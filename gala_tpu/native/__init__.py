@@ -1,36 +1,59 @@
 """Native (C++/OpenMP) preprocessing, loaded through ctypes.
 
-Compiled lazily on first import with g++ (cached as _csr_ops.so next to
-the source); every entry point has a NumPy fallback in gala_tpu.data, so
+Compiled lazily on first use with g++ from the tracked csr_ops.cpp.  The
+library's file name carries a hash of the source, the compile flags and
+the host's machine type, so a library built from other sources or
+flags is never loaded.  The flags target the generic ISA of the machine
+type (no -march=native), so the library runs on any host of that type.
+Every entry point has a NumPy fallback in gala_tpu.data, so
 environments without a toolchain lose speed, not functionality.
 Set GALA_TPU_NO_NATIVE=1 to force the NumPy paths.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
-import sys
+import tempfile
 
 import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "csr_ops.cpp")
-_SO = os.path.join(_DIR, "_csr_ops.so")
+_FLAGS = ("-O3", "-fopenmp", "-shared", "-fPIC", "-std=c++17")
 
 _lib = None
 
 
-def _build() -> bool:
-    cmd = [
-        "g++", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
-        "-std=c++17", _SRC, "-o", _SO,
-    ]
+def _library_path() -> str:
+    """Where the library built from the current source and flags lives."""
+    h = hashlib.sha256()
+    with open(_SRC, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(_FLAGS).encode())
+    h.update(platform.machine().encode())
+    return os.path.join(_DIR, f"_csr_ops-{h.hexdigest()[:16]}.so")
+
+
+def _build(so: str) -> bool:
+    """Compile into a private temporary file, then rename it into place,
+    so concurrent builders (test workers) never load a partial file."""
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_DIR)
+    os.close(fd)
     try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        subprocess.run(
+            ["g++", *_FLAGS, _SRC, "-o", tmp],
+            check=True, capture_output=True, timeout=300,
+        )
+        os.replace(tmp, so)
         return True
-    except Exception:
+    except (OSError, subprocess.SubprocessError):
         return False
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
 
 
 def _load():
@@ -39,11 +62,11 @@ def _load():
         return _lib
     if os.environ.get("GALA_TPU_NO_NATIVE"):
         return None
-    if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
-        if not _build():
-            return None
+    so = _library_path()
+    if not os.path.exists(so) and not _build(so):
+        return None
     try:
-        lib = ctypes.CDLL(_SO)
+        lib = ctypes.CDLL(so)
     except OSError:
         return None
     lib.coo_to_csr_i32.argtypes = [
@@ -79,15 +102,6 @@ def _load():
         ctypes.POINTER(ctypes.c_int32),
         ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64),
         ctypes.POINTER(ctypes.c_int32),
-    ]
-    lib.plan_blocks_count_i32.argtypes = [
-        ctypes.c_int64, ctypes.c_int64,
-        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
-    ]
-    lib.plan_blocks_fill_i32.argtypes = [
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-        ctypes.POINTER(ctypes.c_int32),
-        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
     ]
     lib.keys_symmetric_i64.argtypes = [
         ctypes.c_int64,
@@ -195,54 +209,6 @@ def grow_mask_native(src, dst, mask) -> np.ndarray | None:
         _ptr(mask_in, ctypes.c_uint8), _ptr(mask_out, ctypes.c_uint8),
     )
     return mask_out.astype(bool)
-
-
-def plan_blocks_count_native(cols2: np.ndarray):
-    """Count-only pass of the block planner: per-chunk unique-8-row-block
-    counts (OpenMP) — the cheap probe make_plan's VMEM-budget loop runs
-    before paying for the fill.  None without native."""
-    lib = _load()
-    if lib is None:
-        return None
-    c_chunks = cols2.shape[0]
-    rk = int(np.prod(cols2.shape[1:]))
-    flat = np.ascontiguousarray(cols2.reshape(c_chunks, rk), dtype=np.int32)
-    counts = np.empty(c_chunks, np.int32)
-    lib.plan_blocks_count_i32(
-        c_chunks, rk, _ptr(flat, ctypes.c_int32), _ptr(counts, ctypes.c_int32)
-    )
-    return counts
-
-
-def plan_blocks_native(cols2: np.ndarray, u: int | None = None):
-    """Per-chunk 8-row-block plan for the Pallas bell kernels (OpenMP).
-
-    cols2: (C, R, k) int source-row ids (already chunk-padded).  Returns
-    (blocks (C, U) int32, locals (C, R, k) int32, U) matching
-    bell_spmm.plan_chunks' pure-NumPy plan — or None without native.
-    Pass u (the known max unique-block count, e.g. from a prior
-    plan_blocks_count_native probe) to skip the count pass.
-    """
-    lib = _load()
-    if lib is None:
-        return None
-    c_chunks = cols2.shape[0]
-    rk = int(np.prod(cols2.shape[1:]))
-    flat = np.ascontiguousarray(cols2.reshape(c_chunks, rk), dtype=np.int32)
-    if u is None:
-        counts = np.empty(c_chunks, np.int32)
-        lib.plan_blocks_count_i32(
-            c_chunks, rk, _ptr(flat, ctypes.c_int32),
-            _ptr(counts, ctypes.c_int32),
-        )
-        u = int(counts.max())
-    blocks = np.empty((c_chunks, u), np.int32)
-    locals_ = np.empty((c_chunks, rk), np.int32)
-    lib.plan_blocks_fill_i32(
-        c_chunks, rk, u, _ptr(flat, ctypes.c_int32),
-        _ptr(blocks, ctypes.c_int32), _ptr(locals_, ctypes.c_int32),
-    )
-    return blocks, locals_.reshape(cols2.shape), u
 
 
 def stage_dedup_native(cols, bounds):

@@ -1,6 +1,6 @@
 // Native host-side graph preprocessing (OpenMP C++).
 //
-// TPU-native counterpart of the reference's OpenMP runtime library:
+// Counterpart of the reference's OpenMP runtime library:
 //   - CSR build by counting sort  (reference: src/formats/csrc_matrix.h:148-376,
 //     src/utils/mtx_sort.h count_atomic/count_sort_place/partial_sum)
 //   - row-split ELL construction  (the layout gala_tpu/data/ell.py defines)
@@ -145,63 +145,6 @@ void stage_dedup_i32(
             const int32_t* pos = std::lower_bound(u, u + m, cols[i]);
             local_out[i] = (int32_t)(pos - u);
         }
-    }
-}
-
-// Per-chunk 8-row-block planning for the Pallas bell kernels
-// (gala_tpu/ops/pallas/bell_spmm.plan_chunks): each chunk's slot cols
-// reduce to sorted unique block ids (id >> 3) plus per-slot staged-row
-// indices.  Two passes share the chunk-parallel sort+unique: count
-// returns per-chunk unique-block counts (host takes the max U), fill
-// writes blocks (C, U) padded with blk[0] and locals (C, rk).
-void plan_blocks_count_i32(
-    int64_t c_chunks, int64_t rk, const int32_t* cols, int32_t* counts)
-{
-#pragma omp parallel
-    {
-        int32_t* scratch = new int32_t[rk];
-#pragma omp for schedule(dynamic)
-        for (int64_t c = 0; c < c_chunks; ++c) {
-            const int32_t* ids = cols + c * rk;
-            for (int64_t i = 0; i < rk; ++i) scratch[i] = ids[i] >> 3;
-            std::sort(scratch, scratch + rk);
-            int64_t m = 0;
-            for (int64_t i = 0; i < rk; ++i)
-                if (i == 0 || scratch[i] != scratch[m - 1])
-                    scratch[m++] = scratch[i];
-            counts[c] = (int32_t)m;
-        }
-        delete[] scratch;
-    }
-}
-
-void plan_blocks_fill_i32(
-    int64_t c_chunks, int64_t rk, int64_t u, const int32_t* cols,
-    int32_t* blocks, int32_t* locals_out)
-{
-#pragma omp parallel
-    {
-        int32_t* scratch = new int32_t[rk];
-#pragma omp for schedule(dynamic)
-        for (int64_t c = 0; c < c_chunks; ++c) {
-            const int32_t* ids = cols + c * rk;
-            int32_t* blk = blocks + c * u;
-            for (int64_t i = 0; i < rk; ++i) scratch[i] = ids[i] >> 3;
-            std::sort(scratch, scratch + rk);
-            int64_t m = 0;
-            for (int64_t i = 0; i < rk; ++i)
-                if (i == 0 || scratch[i] != scratch[m - 1])
-                    scratch[m++] = scratch[i];
-            for (int64_t i = 0; i < m; ++i) blk[i] = scratch[i];
-            for (int64_t i = m; i < u; ++i) blk[i] = scratch[0];
-            int32_t* loc = locals_out + c * rk;
-            for (int64_t i = 0; i < rk; ++i) {
-                const int32_t b = ids[i] >> 3;
-                const int32_t* pos = std::lower_bound(blk, blk + m, b);
-                loc[i] = (int32_t)((pos - blk) << 3) + (ids[i] & 7);
-            }
-        }
-        delete[] scratch;
     }
 }
 

@@ -1,4 +1,4 @@
-"""Fused slot-space graph attention (the TPU-native GAT hot path).
+"""Fused slot-space graph attention (the GAT hot path).
 
 Replaces the edge-centric chain the reference generates for GAT —
 SDDVV-add logits, leaky-relu, per-destination edge softmax, SpMM with
@@ -7,8 +7,7 @@ their autograd wrappers, src/codegen/common.h:700-1084) — with ONE
 fused op over the binned-ELL slot layout (gala_tpu/data/ell.py):
 
 - the src-side attention terms `vl` ride as extra feature columns, so
-  scores and aggregation share a single row gather (the dominant cost:
-  the measured XLA gather rate is per-row, independent of row width);
+  scores and aggregation share a single row gather (the dominant cost);
 - MULTI-HEAD is free at the gather level: head h's features occupy
   columns [h*fh, (h+1)*fh) of x and its score column is hf+h — all
   heads share the one (S, hf+H) gather and differ only in the cheap
@@ -19,9 +18,10 @@ fused op over the binned-ELL slot layout (gala_tpu/data/ell.py):
   virtual rows;
 - the backward pass RECOMPUTES attention in the transpose layout from
   node-sized tables (saved per-node softmax max/denominator and the
-  p·dp row sums), because gathers from slot-sized tables run ~10x
-  slower than from node-sized tables on the v5e — one fast gather of
-  [dout | vr | m | s | sds] rows replaces any slot permutation.
+  p·dp row sums), because gathers from slot-sized tables were far
+  slower than from node-sized tables where this was first tuned — one
+  gather of [dout | vr | m | s | sds] rows replaces any slot
+  permutation.
 
 Cost per GAT layer ~= one GCN aggregation each way + a few extra
 feature columns per head.
@@ -38,7 +38,7 @@ import numpy as np
 from gala_tpu.data.csr import HostCSR
 from gala_tpu.data.ell import build_binned_ell
 from gala_tpu.ops.graph import BellDev
-from gala_tpu.ops.spmm import _pack_factor, _pack_table
+from gala_tpu.ops.spmm import _pack_factor, _pack_table, slot_reduce
 
 _NEG = -1e30
 
@@ -70,10 +70,9 @@ assert _ATTN_CHUNK_ELEMS == _S_CHUNK * 128, (
 
 
 def _phys_cols(f: int) -> int:
-    """Physical lane count of an f-wide buffer: XLA:TPU pads the minor
-    dimension to multiples of 128 lanes, so a (S, 33) f32 gather buffer
-    occupies (S, 128) HBM — budget accounting must use this, not f
-    (measured: 3.9x 'extra memory due to padding' in the allocator log)."""
+    """Lane count of an f-wide buffer padded to multiples of 128.  The
+    chunk budgets count columns this way; they are inherited constants,
+    not yet measured on the GPU."""
     return ((f + 127) // 128) * 128
 
 
@@ -102,10 +101,10 @@ def _chunks(n_rows: int, k: int, f: int, chunk_slots: int = 0):
 
 # at/above this many chunks a segment's unrolled barrier chain is
 # replaced by a rolled lax.scan: O(1) HLO in chunk count (unrolled
-# many-chunk programs cost minutes of remote compile at products/
-# papers100M scale), one live gather temp, at the price of the depth-2
-# adjacent-chunk overlap (measured 3-9% — only triggers where compile
-# time / HLO size dominates).  Mirrors ops/spmm._SCAN_MIN_CHUNKS.
+# many-chunk programs cost minutes of compile at products/papers100M
+# scale), one live gather temp, at the price of the depth-2
+# adjacent-chunk overlap (only triggers where compile time / HLO size
+# dominates).  Mirrors ops/spmm._SCAN_MIN_CHUNKS.
 _SCAN_MIN_CHUNKS = 16
 
 
@@ -145,26 +144,6 @@ def _rolled_map(cols_seg, rows, k, per_row, body, rows_per_chunk,
     )
 
 
-def _pallas_table(b, xx, width):
-    """Pad a gather table once per pass for the fused Pallas kernels:
-    columns to the 128-lane physical width, rows to the largest plan's
-    block-DMA coverage.  Returns None (XLA path) when this side has no
-    plans or the plans were budgeted for a narrower width than `width`
-    (the kernels' VMEM staging would overflow)."""
-    if b.pallas_plans is None:
-        return None
-    live = [pn for pn in b.pallas_plans if pn is not None]
-    fp = _phys_cols(width)
-    if not live or any(fp > pn.f_budget for pn in live):
-        return None
-    if fp != width:
-        xx = jnp.pad(xx, ((0, 0), (0, fp - width)))
-    n_need = max(pn.n_need for pn in live)
-    if n_need > xx.shape[0]:
-        xx = jnp.pad(xx, ((0, n_need - xx.shape[0]), (0, 0)))
-    return xx
-
-
 def _rolled_acc(cols_seg, rows, k, per_row, carry0, body, rows_per_chunk):
     """Rolled hub accumulation: like _rolled_map but body(carry,
     cols_c, *per_row_c) -> carry threads segment-level accumulators
@@ -198,8 +177,7 @@ def _gather_slots(table, cols, p, fw, stage_pair=None):
     and the slot's lane window is selected elementwise — every operand
     stays 2-D (3-D small-minor operands tile-pad up to 64x).  When
     `stage_pair` = (uniq, local) is given the gather runs two-level
-    through a barrier-staged dedup table (see ops/spmm._STAGE_MIN_BYTES;
-    measured 1.6-2x on cliff-sized tables)."""
+    through a barrier-staged dedup table (see ops/spmm._STAGE_MIN_BYTES)."""
     rows, k = cols.shape
     if stage_pair is not None:
         uniq, local = stage_pair
@@ -309,8 +287,7 @@ class AttnBell:
 
     @classmethod
     def from_host(cls, g: HostCSR, n_pad: int, c_pad: int,
-                  chunk_slots: int = 0, use_pallas: bool = False,
-                  pallas_feat: int = 128) -> "AttnBell":
+                  chunk_slots: int = 0) -> "AttnBell":
         from gala_tpu.data.ell import S_CHUNK, build_stage_tables
         from gala_tpu.ops.graph import _STAGE_BUILD_BYTES, _STAGE_MAX_UNIQ_FRAC
 
@@ -322,42 +299,13 @@ class AttnBell:
             st = build_stage_tables(h, chunk_slots or S_CHUNK)
             return st if st.uniq_frac < _STAGE_MAX_UNIQ_FRAC else None
 
-        plans = plans_t = None
-        if use_pallas:
-            # fused Pallas attention kernels run the BIN segments only
-            # (hub cross-virtual-row softmax keeps the XLA online path).
-            # fwd plans drive the forward + backward pass-1 (same [x|vl]
-            # table); t plans drive backward pass-2 (the hf+4H-wide
-            # [dout|vr|m|s|sds] destination table) — both sides budget
-            # f_pad for the widest layer (pallas_feat includes the 4H).
-            from gala_tpu.ops.pallas.bell_spmm import build_segment_plans
-
-            f_pad = ((pallas_feat + 127) // 128) * 128
-
-            def _plans(h):
-                # hub segments plan like any bin: the kernels emit
-                # per-virtual-row partials and the executor merges them
-                # with (n_big)-sized segment ops (fwd: online-softmax
-                # rescale; backward: plain sums)
-                # r=128: the attention kernels run 2-3 fori sweeps whose
-                # bodies all SUM in Mosaic's 16MB stack accounting —
-                # r=256 overflows at real u8 (bwd2 18.8M), r=128 fits
-                # with headroom to u8=4096 (probe_attn.py)
-                return build_segment_plans(h, f_pad=f_pad,
-                                           rows_per_chunk=128,
-                                           chunk_slots=chunk_slots)
-
-            plans, plans_t = _plans(hb), _plans(hbt)
-
         return cls(
             fwd=BellDev.from_host(hb, n_pad, g.n_rows,
                                   stage_tables=_stage(hb, g.n_cols),
-                                  chunk_slots=chunk_slots,
-                                  pallas_plans=plans),
+                                  chunk_slots=chunk_slots),
             t=BellDev.from_host(hbt, c_pad, g.n_cols,
                                 stage_tables=_stage(hbt, g.n_rows),
-                                chunk_slots=chunk_slots,
-                                pallas_plans=plans_t),
+                                chunk_slots=chunk_slots),
             rows=None if hb.identity_order else jnp.asarray(hb.order.astype(np.int32)),
             t_rows=None if hbt.identity_order else jnp.asarray(hbt.order.astype(np.int32)),
         )
@@ -389,10 +337,8 @@ def _head_softmax(seg, w, vr_rows, hf, fh, h, slope):
     s = jnp.sum(p, axis=1, keepdims=True)
     s = jnp.where(s > 0, s, 1.0)
     p = p / s
-    out = jnp.einsum(
-        "vk,vkf->vf", p.astype(seg.dtype), seg[..., h * fh : (h + 1) * fh],
-        preferred_element_type=jnp.float32,
-    ).astype(seg.dtype)
+    out = slot_reduce(p.astype(seg.dtype), seg[..., h * fh : (h + 1) * fh],
+                      seg.dtype)
     return out, p, m, s
 
 
@@ -416,14 +362,8 @@ def _head_softmax_pos(seg, w, vr_rows, hf, fh, h, slope):
     p = p / s
     ppos = jnp.where(zpre > 0, p, 0.0)
     xs = seg[..., h * fh : (h + 1) * fh]
-    out32 = jnp.einsum(
-        "vk,vkf->vf", p.astype(xs.dtype), xs,
-        preferred_element_type=jnp.float32,
-    ).astype(jnp.float32)
-    outpos32 = jnp.einsum(
-        "vk,vkf->vf", ppos.astype(xs.dtype), xs,
-        preferred_element_type=jnp.float32,
-    ).astype(jnp.float32)
+    out32 = slot_reduce(p.astype(xs.dtype), xs, jnp.float32)
+    outpos32 = slot_reduce(ppos.astype(xs.dtype), xs, jnp.float32)
     spos = jnp.sum(ppos, axis=1, keepdims=True)
     return out32, outpos32, m, s, spos
 
@@ -480,10 +420,9 @@ def _attn_fwd_raw(ab: AttnBell, x, vl, vr, slope, n_pad):
             )
             s = jnp.where(s > 0, s, 1.0)
             p = p / s[b.big_vrow][:, None]
-            part = jnp.einsum(
-                "vk,vkf->vf", p.astype(x.dtype), seg[..., h * fh : (h + 1) * fh],
-                preferred_element_type=jnp.float32,
-            ).astype(x.dtype)
+            part = slot_reduce(
+                p.astype(x.dtype), seg[..., h * fh : (h + 1) * fh], x.dtype
+            )
             outs_h.append(
                 jax.ops.segment_sum(
                     part, b.big_vrow, num_segments=b.n_big, indices_are_sorted=True
@@ -510,16 +449,15 @@ def _attn_fwd_chunked(ab: AttnBell, x, vl, vr, slope, n_pad,
     accumulates with an online (rescaling) softmax so no S-sized buffer
     ever materializes.  Returns per-node stats only.
 
-    On the XLA path (no Pallas plans) the forward additionally
-    accumulates the flash-identity statistics out+ = sum_{zpre>0} p*x
+    With need_flash the forward additionally accumulates the flash-identity statistics out+ = sum_{zpre>0} p*x
     and s+ = sum_{zpre>0} p per destination — node-sized residuals that
     let the backward compute sds and dvr WITHOUT re-gathering the slot
-    table (pass 1 of the old backward), cutting a full S-slot gather
+    table, cutting a full S-slot gather
     sweep per layer (see _attn_bwd_chunked).
 
     need_flash=False (the custom_vjp PRIMAL, i.e. inference) skips the
     pos-stat accumulation entirely: it would double the per-slot reduce
-    (a second (vk,vkf) einsum per chunk per head) and widen every
+    (a second slot reduce per chunk per head) and widen every
     scan/fori carry — work XLA cannot dead-code-eliminate out of a
     rolled loop — for residuals only the backward reads."""
     hf = x.shape[1]
@@ -532,30 +470,11 @@ def _attn_fwd_chunked(ab: AttnBell, x, vl, vr, slope, n_pad,
     pl = _Pipeline(_pack_table(xx, p_x) if p_x > 1 else xx)
     sctx = _stage_ctx(b, xx, p_x, hf + nh)
 
-    # fused Pallas forward: pad the [x | vl] table once
-    xx_pallas = _pallas_table(b, xx, hf + nh)
-    # kernels do not emit the pos-stats
-    use_flash = xx_pallas is None and need_flash
+    use_flash = need_flash
 
     parts, ms, ss, off, r0, si = [], [], [], 0, 0, 0
     pos_parts, spos_parts = [], []
     for k, nb, w in zip(b.bin_ks, b.bin_counts, b.bin_vals):
-        plan = b.pallas_plans[si] if xx_pallas is not None else None
-        if plan is not None:
-            from gala_tpu.ops.pallas.attn_bell import attn_fwd_planned
-
-            o_b, m_b, s_b = attn_fwd_planned(
-                plan, xx_pallas, w, vr_bin[r0 : r0 + nb], hf, nh, slope,
-                interpret=jax.default_backend() != "tpu",
-                precision=jax.lax.Precision.HIGHEST,
-            )
-            parts.append(o_b.astype(x.dtype))
-            ms.append(m_b)
-            ss.append(s_b)
-            off += nb * k
-            r0 += nb
-            si += 1
-            continue
         rows_c = _chunk_rows(k, hf + nh, b.chunk_slots)
         if sctx is None and -(-nb // rows_c) >= _SCAN_MIN_CHUNKS:
             # many-chunk bin: rolled lax.scan (see _SCAN_MIN_CHUNKS)
@@ -643,57 +562,7 @@ def _attn_fwd_chunked(ab: AttnBell, x, vl, vr, slope, n_pad,
         off += nb * k
         r0 += nb
         si += 1
-    hub_plan = (
-        b.pallas_plans[si] if (b.n_big and xx_pallas is not None) else None
-    )
-    if b.n_big and hub_plan is not None:
-        # fused Pallas hub forward: the kernel emits UNNORMALIZED
-        # per-virtual-row partials (acc = sum_k exp(z - m_v) x, raw
-        # rowmax m_v, rowsum s_v); virtual rows of one hub node merge
-        # here with the standard blockwise online-softmax rescaling —
-        # tiny (n_big)-sized segment ops, while the expensive slot
-        # gather + weighted reduce stayed in VMEM
-        from gala_tpu.ops.pallas.attn_bell import attn_fwd_planned
-
-        acc_v, m_v, s_v = attn_fwd_planned(
-            hub_plan, xx_pallas, b.big_vals, vr_bin[r0 + b.big_vrow],
-            hf, nh, slope, interpret=jax.default_backend() != "tpu",
-            normalize=False, precision=jax.lax.Precision.HIGHEST,
-        )
-        m = jnp.maximum(
-            jax.ops.segment_max(
-                m_v, b.big_vrow, num_segments=b.n_big,
-                indices_are_sorted=True,
-            ),
-            _NEG,
-        )
-        scale = jnp.exp(m_v - m[b.big_vrow])
-        s = jax.ops.segment_sum(
-            s_v * scale, b.big_vrow, num_segments=b.n_big,
-            indices_are_sorted=True,
-        )
-        acc = jax.ops.segment_sum(
-            acc_v * jnp.repeat(scale, fh, axis=1), b.big_vrow,
-            num_segments=b.n_big, indices_are_sorted=True,
-        )
-        s = jnp.where(s > 0, s, 1.0)
-        out_big = (
-            jnp.concatenate(
-                [
-                    (acc[:, h * fh : (h + 1) * fh] / s[:, h : h + 1]).astype(
-                        x.dtype
-                    )
-                    for h in range(nh)
-                ],
-                axis=1,
-            )
-            if nh > 1
-            else (acc / s).astype(x.dtype)
-        )
-        parts.append(out_big)
-        ms.append(jnp.maximum(m, _NEG / 2))
-        ss.append(s)
-    elif b.n_big:
+    if b.n_big:
         vb, kb = b.big_vals.shape
 
         def hub_chunk(m, s, acc, sp, accp, seg, wv, vrow):
@@ -701,7 +570,7 @@ def _attn_fwd_chunked(ab: AttnBell, x, vl, vr, slope, n_pad,
             sp/accp carry the flash pos-statistics with the SAME
             rescaling as s/acc — skipped entirely (None carries) when
             the flash residuals are not needed (inference primal): the
-            accp einsum doubles the per-slot reduce work."""
+            accp reduce doubles the per-slot reduce work."""
             m_hs, s_hs, acc_hs, sp_hs, accp_hs = [], [], [], [], []
             for h in range(nh):
                 zpre = seg[..., hf + h].astype(jnp.float32) + vr_bin[
@@ -720,11 +589,8 @@ def _attn_fwd_chunked(ab: AttnBell, x, vl, vr, slope, n_pad,
                     indices_are_sorted=True,
                 )
                 acc_c = jax.ops.segment_sum(
-                    jnp.einsum(
-                        "vk,vkf->vf", p.astype(x.dtype),
-                        seg[..., h * fh : (h + 1) * fh],
-                        preferred_element_type=jnp.float32,
-                    ),
+                    slot_reduce(p.astype(x.dtype),
+                                seg[..., h * fh : (h + 1) * fh], jnp.float32),
                     vrow, num_segments=b.n_big, indices_are_sorted=True,
                 )
                 scale = jnp.exp(m_h - m_new)
@@ -740,11 +606,9 @@ def _attn_fwd_chunked(ab: AttnBell, x, vl, vr, slope, n_pad,
                         indices_are_sorted=True,
                     )
                     accp_c = jax.ops.segment_sum(
-                        jnp.einsum(
-                            "vk,vkf->vf", ppos.astype(x.dtype),
-                            seg[..., h * fh : (h + 1) * fh],
-                            preferred_element_type=jnp.float32,
-                        ),
+                        slot_reduce(ppos.astype(x.dtype),
+                                    seg[..., h * fh : (h + 1) * fh],
+                                    jnp.float32),
                         vrow, num_segments=b.n_big, indices_are_sorted=True,
                     )
                     sp_hs.append(sp[:, h] * scale + sp_c)
@@ -841,37 +705,12 @@ def _attn_fwd_chunked(ab: AttnBell, x, vl, vr, slope, n_pad,
     return out, vr_bin, m_bin, s_bin, m_node, s_node, flash
 
 
-def _head_bwd_stats(seg, wv, vr_rows, dout_rows, m_rows, s_rows,
-                    hf, fh, h, slope):
-    """Pass-1 per-head accumulators for one bin chunk: probabilities
-    recomputed from the saved per-node stats, then
-      sds = sum_k p*dp,  A = sum p*dp*lrelu',  B = sum p*lrelu'
-    (dvr = A - sds*B without a second sweep)."""
-    zpre = seg[..., hf + h].astype(jnp.float32) + vr_rows[:, h : h + 1].astype(
-        jnp.float32
-    )
-    z = jnp.where(wv != 0, _lrelu(zpre, slope), _NEG)
-    p = jnp.where(
-        wv != 0, jnp.exp(z - m_rows[:, h : h + 1]) / s_rows[:, h : h + 1], 0.0
-    )
-    do = dout_rows[:, h * fh : (h + 1) * fh].astype(jnp.float32)
-    dp = jnp.sum(
-        seg[..., h * fh : (h + 1) * fh].astype(jnp.float32) * do[:, None, :],
-        axis=-1,
-    )
-    lr = jnp.where(zpre > 0, 1.0, slope)
-    sds = jnp.sum(p * dp, axis=1, keepdims=True)
-    a = jnp.sum(p * dp * lr, axis=1, keepdims=True)
-    bb = jnp.sum(p * lr, axis=1, keepdims=True)
-    return sds, a, bb
-
-
-def _attn_bwd_chunked(ab: AttnBell, x, vl, vr, vr_bin, m_bin, s_bin,
-                      m_node, s_node, slope, dout, c_pad, flash=None):
+def _attn_bwd_chunked(ab: AttnBell, x, vl, vr, m_node, s_node, slope, dout,
+                      c_pad, flash):
     """Memory-bounded backward.
 
-    With `flash` = (out32, outpos, spos) forward residuals (the XLA
-    chunked path), pass 1's S-slot gather sweep is REPLACED by
+    With `flash` = (out32, outpos, spos) forward residuals, the S-slot
+    gather sweep that would recompute probabilities is REPLACED by
     node-sized flash identities:
       sds(r,h)  = <dout_r, out_r>_h          (flash-attention's D trick:
                   sum_e p*dp = <dout, sum_e p*x> = <dout, out>)
@@ -880,213 +719,25 @@ def _attn_bwd_chunked(ab: AttnBell, x, vl, vr, vr_bin, m_bin, s_bin,
     (derivation: lrelu'(z) = slope + (1-slope)*[z>0], so
      A = sum p*dp*lrelu' = slope*sds + (1-slope)*PDP+ and
      B = sum p*lrelu'    = slope*1   + (1-slope)*s+; dvr = A - sds*B.)
-    This cuts the 3-gather-sweep GAT layer to 2 sweeps.
-
-    Without `flash` (Pallas-planned layouts), pass 1 recomputes
-    probabilities per chunk from the saved per-node softmax stats and
-    accumulates sds/A/B in one gather sweep.  Pass 2 (transpose layout)
-    is plain accumulation either way, chunked the same way."""
+    This cuts the 3-gather-sweep GAT layer to 2 sweeps.  Pass 2
+    (transpose layout) is plain accumulation, chunked the same way."""
     hf = x.shape[1]
     nh = vl.shape[1]
     fh = hf // nh
-    b = ab.fwd
-    if flash is not None:
-        out32, outpos, spos = flash
-        do32 = dout.astype(jnp.float32)
-        sds_cols, pdp_cols = [], []
-        for h in range(nh):
-            sl = slice(h * fh, (h + 1) * fh)
-            sds_cols.append(
-                jnp.sum(do32[:, sl] * out32[:, sl], axis=1, keepdims=True)
-            )
-            pdp_cols.append(
-                jnp.sum(do32[:, sl] * outpos[:, sl], axis=1, keepdims=True)
-            )
-        sds_node = jnp.concatenate(sds_cols, axis=1) if nh > 1 else sds_cols[0]
-        pdp_pos = jnp.concatenate(pdp_cols, axis=1) if nh > 1 else pdp_cols[0]
-        dvr = (1.0 - slope) * (pdp_pos - sds_node * spos)
-        return _attn_bwd_pass2(
-            ab, x, vl, vr, m_node, s_node, sds_node, dvr, slope, dout, c_pad
+    out32, outpos, spos = flash
+    do32 = dout.astype(jnp.float32)
+    sds_cols, pdp_cols = [], []
+    for h in range(nh):
+        sl = slice(h * fh, (h + 1) * fh)
+        sds_cols.append(
+            jnp.sum(do32[:, sl] * out32[:, sl], axis=1, keepdims=True)
         )
-    xx = jnp.concatenate([x, vl.astype(x.dtype)], axis=1)
-    dout_bin = dout if ab.rows is None else dout[ab.rows]
-    p_x = _pack_factor(xx.shape[0], hf + nh, jnp.dtype(xx.dtype).itemsize)
-    pl = _Pipeline(_pack_table(xx, p_x) if p_x > 1 else xx)
-    sctx = _stage_ctx(b, xx, p_x, hf + nh)
-
-    xx_pallas = _pallas_table(b, xx, hf + nh)
-
-    sds_parts, a_parts, b_parts, off, r0, si = [], [], [], 0, 0, 0
-    for k, nb, w in zip(b.bin_ks, b.bin_counts, b.bin_vals):
-        plan = b.pallas_plans[si] if xx_pallas is not None else None
-        if plan is not None:
-            from gala_tpu.ops.pallas.attn_bell import attn_bwd1_planned
-
-            sds_b, a_b2, b_b2 = attn_bwd1_planned(
-                plan, xx_pallas, w, vr_bin[r0 : r0 + nb],
-                dout_bin[r0 : r0 + nb], m_bin[r0 : r0 + nb],
-                s_bin[r0 : r0 + nb], hf, nh, slope,
-                interpret=jax.default_backend() != "tpu",
-            )
-            sds_parts.append(sds_b)
-            a_parts.append(a_b2)
-            b_parts.append(b_b2)
-            off += nb * k
-            r0 += nb
-            si += 1
-            continue
-        rows_c = _chunk_rows(k, hf + nh, b.chunk_slots)
-        if sctx is None and -(-nb // rows_c) >= _SCAN_MIN_CHUNKS:
-            # many-chunk bin: rolled lax.scan (see _SCAN_MIN_CHUNKS)
-            def bwd_body(cols_c, wv, vr_c, do_c, m_c, s_c):
-                seg = _gather_slots(pl.table(), cols_c, p_x, hf + nh)
-                sds_h, a_h, b_h = [], [], []
-                for h in range(nh):
-                    sds_c, a_c, b_c = _head_bwd_stats(
-                        seg, wv, vr_c, do_c, m_c, s_c, hf, fh, h, slope
-                    )
-                    sds_h.append(sds_c)
-                    a_h.append(a_c)
-                    b_h.append(b_c)
-                return (
-                    jnp.concatenate(sds_h, axis=1) if nh > 1 else sds_h[0],
-                    jnp.concatenate(a_h, axis=1) if nh > 1 else a_h[0],
-                    jnp.concatenate(b_h, axis=1) if nh > 1 else b_h[0],
-                )
-
-            cols_seg = jax.lax.slice_in_dim(b.flat_cols, off, off + nb * k)
-            sds_b, a_b2, b_b2 = _rolled_map(
-                cols_seg, nb, k,
-                (w, vr_bin[r0 : r0 + nb], dout_bin[r0 : r0 + nb],
-                 m_bin[r0 : r0 + nb], s_bin[r0 : r0 + nb]),
-                bwd_body, rows_c,
-                pad_vals={4: 1},  # softmax denominators: avoid 0/0 rows
-            )
-            sds_parts.append(sds_b)
-            a_parts.append(a_b2)
-            b_parts.append(b_b2)
-            off += nb * k
-            r0 += nb
-            si += 1
-            continue
-        sds_cs, a_cs, b_cs = [], [], []
-        for ci, (lo, hi) in enumerate(_chunks(nb, k, hf + nh, b.chunk_slots)):
-            cols = jax.lax.slice_in_dim(
-                b.flat_cols, off + lo * k, off + hi * k
-            ).reshape(hi - lo, k)
-            seg = _gather_slots(pl.table(), cols, p_x, hf + nh,
-                                sctx[si][ci] if sctx else None)
-            wv = jax.lax.slice_in_dim(w, lo, hi)
-            sds_h, a_h, b_h = [], [], []
-            for h in range(nh):
-                sds_c, a_c, b_c = _head_bwd_stats(
-                    seg, wv, vr_bin[r0 + lo : r0 + hi],
-                    dout_bin[r0 + lo : r0 + hi],
-                    m_bin[r0 + lo : r0 + hi], s_bin[r0 + lo : r0 + hi],
-                    hf, fh, h, slope,
-                )
-                sds_h.append(sds_c)
-                a_h.append(a_c)
-                b_h.append(b_c)
-            sds_c = jnp.concatenate(sds_h, axis=1) if nh > 1 else sds_h[0]
-            a_c = jnp.concatenate(a_h, axis=1) if nh > 1 else a_h[0]
-            b_c = jnp.concatenate(b_h, axis=1) if nh > 1 else b_h[0]
-            sds_c, a_c, b_c = pl.step(sds_c, a_c, b_c)
-            sds_cs.append(sds_c)
-            a_cs.append(a_c)
-            b_cs.append(b_c)
-        sds_parts.append(jnp.concatenate(sds_cs) if len(sds_cs) > 1 else sds_cs[0])
-        a_parts.append(jnp.concatenate(a_cs) if len(a_cs) > 1 else a_cs[0])
-        b_parts.append(jnp.concatenate(b_cs) if len(b_cs) > 1 else b_cs[0])
-        off += nb * k
-        r0 += nb
-        si += 1
-    hub_plan = (
-        b.pallas_plans[si] if (b.n_big and xx_pallas is not None) else None
-    )
-    if b.n_big and hub_plan is not None:
-        # fused Pallas hub pass-1: probabilities recompute in-kernel
-        # from the NODE-level (m, s) broadcast to virtual rows (they are
-        # already global softmax stats), so the per-virtual-row
-        # (sds, A, B) partials just segment-sum per hub node
-        from gala_tpu.ops.pallas.attn_bell import attn_bwd1_planned
-
-        sds_v, a_v, b_v = attn_bwd1_planned(
-            hub_plan, xx_pallas, b.big_vals, vr_bin[r0 + b.big_vrow],
-            dout_bin[r0 + b.big_vrow], m_bin[r0 + b.big_vrow],
-            s_bin[r0 + b.big_vrow], hf, nh, slope,
-            interpret=jax.default_backend() != "tpu",
+        pdp_cols.append(
+            jnp.sum(do32[:, sl] * outpos[:, sl], axis=1, keepdims=True)
         )
-
-        def _seg(v):
-            return jax.ops.segment_sum(
-                v, b.big_vrow, num_segments=b.n_big, indices_are_sorted=True
-            )
-
-        sds_parts.append(_seg(sds_v))
-        a_parts.append(_seg(a_v))
-        b_parts.append(_seg(b_v))
-    elif b.n_big:
-        vb, kb = b.big_vals.shape
-
-        def hub_bwd_chunk(sds_b, a_b, b_b, seg, wv, vrow):
-            sds_h, a_h, b_h = [], [], []
-            for h in range(nh):
-                sds_c, a_c, b_c = _head_bwd_stats(
-                    seg, wv, vr_bin[r0 + vrow], dout_bin[r0 + vrow],
-                    m_bin[r0 + vrow], s_bin[r0 + vrow], hf, fh, h, slope,
-                )
-
-                def seg_add(val):
-                    return jax.ops.segment_sum(
-                        val[:, 0], vrow, num_segments=b.n_big,
-                        indices_are_sorted=True,
-                    )[:, None]
-
-                sds_h.append(seg_add(sds_c))
-                a_h.append(seg_add(a_c))
-                b_h.append(seg_add(b_c))
-            sds_b = sds_b + (jnp.concatenate(sds_h, axis=1) if nh > 1 else sds_h[0])
-            a_b = a_b + (jnp.concatenate(a_h, axis=1) if nh > 1 else a_h[0])
-            b_b = b_b + (jnp.concatenate(b_h, axis=1) if nh > 1 else b_h[0])
-            return sds_b, a_b, b_b
-
-        sds_b = jnp.zeros((b.n_big, nh), jnp.float32)
-        a_b = jnp.zeros((b.n_big, nh), jnp.float32)
-        b_b = jnp.zeros((b.n_big, nh), jnp.float32)
-        rows_c = _chunk_rows(kb, hf + nh, b.chunk_slots)
-        if sctx is None and -(-vb // rows_c) >= _SCAN_MIN_CHUNKS:
-            def hub_bwd_body(carry, cols_c, wv, vrow):
-                seg = _gather_slots(pl.table(), cols_c, p_x, hf + nh)
-                return hub_bwd_chunk(*carry, seg, wv, vrow)
-
-            cols_seg = jax.lax.slice_in_dim(b.flat_cols, off, off + vb * kb)
-            sds_b, a_b, b_b = _rolled_acc(
-                cols_seg, vb, kb, (b.big_vals, b.big_vrow),
-                (sds_b, a_b, b_b), hub_bwd_body, rows_c,
-            )
-        else:
-            for ci, (lo, hi) in enumerate(
-                _chunks(vb, kb, hf + nh, b.chunk_slots)
-            ):
-                cols = jax.lax.slice_in_dim(
-                    b.flat_cols, off + lo * kb, off + hi * kb
-                ).reshape(hi - lo, kb)
-                seg = _gather_slots(pl.table(), cols, p_x, hf + nh,
-                                    sctx[si][ci] if sctx else None)
-                wv = jax.lax.slice_in_dim(b.big_vals, lo, hi)
-                vrow = jax.lax.slice_in_dim(b.big_vrow, lo, hi)
-                sds_b, a_b, b_b = hub_bwd_chunk(sds_b, a_b, b_b, seg, wv, vrow)
-                sds_b, a_b, b_b = pl.step(sds_b, a_b, b_b)
-        sds_parts.append(sds_b)
-        a_parts.append(a_b)
-        b_parts.append(b_b)
-    n_pad = dout.shape[0]
-    sds_bin = jnp.concatenate(sds_parts) if len(sds_parts) > 1 else sds_parts[0]
-    a_bin = jnp.concatenate(a_parts) if len(a_parts) > 1 else a_parts[0]
-    b_bin2 = jnp.concatenate(b_parts) if len(b_parts) > 1 else b_parts[0]
-    dvr = _assemble([a_bin - sds_bin * b_bin2], b, n_pad, nh, jnp.float32)
-    sds_node = _assemble([sds_bin], b, n_pad, nh, jnp.float32)
+    sds_node = jnp.concatenate(sds_cols, axis=1) if nh > 1 else sds_cols[0]
+    pdp_pos = jnp.concatenate(pdp_cols, axis=1) if nh > 1 else pdp_cols[0]
+    dvr = (1.0 - slope) * (pdp_pos - sds_node * spos)
     return _attn_bwd_pass2(
         ab, x, vl, vr, m_node, s_node, sds_node, dvr, slope, dout, c_pad
     )
@@ -1114,24 +765,8 @@ def _attn_bwd_pass2(ab, x, vl, vr, m_node, s_node, sds_node, dvr, slope,
     pl2 = _Pipeline(_pack_table(w_tab, p_w) if p_w > 1 else w_tab)
     sctx2 = _stage_ctx(t, w_tab, p_w, wt)
 
-    wtab_pallas = _pallas_table(t, w_tab, wt)
-
     parts, off, r0, si = [], 0, 0, 0
     for k, nb, w in zip(t.bin_ks, t.bin_counts, t.bin_vals):
-        plan = t.pallas_plans[si] if wtab_pallas is not None else None
-        if plan is not None:
-            from gala_tpu.ops.pallas.attn_bell import attn_bwd2_planned
-
-            o_b = attn_bwd2_planned(
-                plan, wtab_pallas, w, x_t[r0 : r0 + nb],
-                vl_t[r0 : r0 + nb], hf, nh, slope,
-                interpret=jax.default_backend() != "tpu",
-            )
-            parts.append(o_b)
-            off += nb * k
-            r0 += nb
-            si += 1
-            continue
         rows_c = _chunk_rows(k, wt, t.chunk_slots)
         if sctx2 is None and -(-nb // rows_c) >= _SCAN_MIN_CHUNKS:
             # many-chunk bin: rolled lax.scan (see _SCAN_MIN_CHUNKS)
@@ -1167,27 +802,7 @@ def _attn_bwd_pass2(ab, x, vl, vr, m_node, s_node, sds_node, dvr, slope,
         off += nb * k
         r0 += nb
         si += 1
-    hub_plan_t = (
-        t.pallas_plans[si] if (t.n_big and wtab_pallas is not None) else None
-    )
-    if t.n_big and hub_plan_t is not None:
-        # fused Pallas hub pass-2: plain accumulation (no softmax across
-        # the source dim) — per-virtual-row [dx | dvl] partial rows
-        # segment-sum per hub source node
-        from gala_tpu.ops.pallas.attn_bell import attn_bwd2_planned
-
-        dgv = attn_bwd2_planned(
-            hub_plan_t, wtab_pallas, t.big_vals, x_t[r0 + t.big_vrow],
-            vl_t[r0 + t.big_vrow], hf, nh, slope,
-            interpret=jax.default_backend() != "tpu",
-        )
-        parts.append(
-            jax.ops.segment_sum(
-                dgv, t.big_vrow, num_segments=t.n_big,
-                indices_are_sorted=True,
-            )
-        )
-    elif t.n_big:
+    if t.n_big:
         vb, kb = t.big_vals.shape
         acc = jnp.zeros((t.n_big, hf + nh), jnp.float32)
         rows_c = _chunk_rows(kb, wt, t.chunk_slots)
@@ -1275,7 +890,7 @@ def _attn_bwd_raw(ab: AttnBell, x, vl, vr, gth, probs, vr_bin, m_node, s_node,
             p = probs[pi][h]
             do = dout_bin[r0 : r0 + nb, h * fh : (h + 1) * fh].astype(jnp.float32)
             # multiply+reduce, NOT einsum: a (nb, k, f) x (nb, f) einsum
-            # lowers to nb tiny batched matmuls, catastrophic on the MXU
+            # lowers to nb tiny batched matmuls
             dp = jnp.sum(
                 seg[..., h * fh : (h + 1) * fh].astype(jnp.float32)
                 * do[:, None, :],
@@ -1377,10 +992,6 @@ def _is_flat(ab: AttnBell, hf: int, nh: int) -> bool:
         return False
     if ab.fwd.chunk_slots or ab.t.chunk_slots:
         return False
-    # Pallas plans only run from the chunked path (its per-bin structure
-    # matches the kernels' per-segment plans)
-    if ab.fwd.pallas_plans is not None:
-        return False
     s_f = int(ab.fwd.flat_cols.shape[0]) * _phys_cols(hf + nh)
     s_t = int(ab.t.flat_cols.shape[0]) * _phys_cols(hf + 4 * nh)
     return max(s_f, s_t) <= _ATTN_FLAT_ELEMS
@@ -1410,22 +1021,19 @@ def _attn_fwd(n_pad, c_pad, slope, ab, x, vl, vr):
             ab, x, vl, vr, slope, n_pad
         )
         return out, (ab, x, vl, vr, gth, probs, vr_bin, m_node, s_node)
-    out, vr_bin, m_bin, s_bin, m_node, s_node, flash = _attn_fwd_chunked(
+    out, _, _, _, m_node, s_node, flash = _attn_fwd_chunked(
         ab, x, vl, vr, slope, n_pad
     )
     # the probs slot carries the flash-identity residuals on the chunked
-    # XLA path (out32, outpos, spos) — None when Pallas plans are active
-    return out, (ab, x, vl, vr, None, flash, vr_bin, (m_bin, s_bin), (m_node, s_node))
+    # path (out32, outpos, spos)
+    return out, (ab, x, vl, vr, None, flash, None, m_node, s_node)
 
 
 def _attn_bwd(n_pad, c_pad, slope, res, dout):
     ab, x, vl, vr, gth, probs, vr_bin, m_node, s_node = res
     if gth is None:
-        m_bin, s_bin = m_node
-        m_glob, s_glob = s_node
         dx, dvl, dvr = _attn_bwd_chunked(
-            ab, x, vl, vr, vr_bin, m_bin, s_bin, m_glob, s_glob,
-            slope, dout, c_pad, flash=probs,
+            ab, x, vl, vr, m_node, s_node, slope, dout, c_pad, flash=probs,
         )
     else:
         dx, dvl, dvr = _attn_bwd_raw(
@@ -1444,14 +1052,6 @@ def _attn_bwd(n_pad, c_pad, slope, res, dout):
             stage=tuple(
                 (_float0_like(u), _float0_like(l)) for u, l in b.stage
             ) if b.stage is not None else None,
-            pallas_plans=tuple(
-                dataclasses.replace(
-                    pn,
-                    blocks=_float0_like(pn.blocks),
-                    locals_=_float0_like(pn.locals_),
-                ) if pn is not None else None
-                for pn in b.pallas_plans
-            ) if b.pallas_plans is not None else None,
         )
 
     dab = AttnBell(

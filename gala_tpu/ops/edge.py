@@ -1,12 +1,12 @@
 """Edge-level operations: SDDVV, SDDMM, edge softmax.
 
-TPU-native replacements for the reference's generated edge kernels
+JAX replacements for the reference's generated edge kernels
 (reference: src/codegen/cuda.h:504-953 — `edge_sddvv`, `edge_sddmm`,
 `inplace_softmax_sddvv{,_mult}`) and their autograd wrappers
 (reference: src/codegen/common.h:700-1084).
 
 All edge tensors are in *forward (dst-sorted) edge order*; per-destination
-reductions are sorted segment reductions, the TPU analog of the
+reductions are sorted segment reductions, the analog of the
 reference's warp-per-row segment scans.
 """
 from __future__ import annotations

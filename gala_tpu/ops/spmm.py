@@ -1,6 +1,6 @@
-"""Sparse-dense matrix multiplication (node aggregation) on TPU.
+"""Sparse-dense matrix multiplication (node aggregation).
 
-TPU-native replacement for the reference's generated CUDA SpMM kernels
+JAX replacement for the reference's generated CUDA SpMM kernels
 (`aggregate_node_mul_sum_coarseN_kernel*`, reference: src/codegen/cuda.h:282-436)
 and its cuSPARSE fallback (reference: src/codegen/cuda.h:211-279), together
 with their `torch::autograd::Function` wrappers that run the backward pass
@@ -10,13 +10,13 @@ Semantics:  out[d] = sum over edges e with dst[e]==d of vals[e] * x[src[e]]
 
 Three strategies (selected per graph in gala_tpu.ops.graph.choose_strategy):
 
-- dense:        A @ x on the MXU.  The adjacency is densified once
+- dense:        A @ x as one matmul.  The adjacency is densified once
                 (structural vals) or re-scattered per call (learned edge
                 values).  For small graphs this is the speed-of-light path.
 - segment:      weighted gather then `segment_sum` over dst-sorted edges.
 - segment_scan: the same, chunked with `lax.scan` + scatter-add into an
                 (N, F) accumulator, bounding the (E, F) intermediate — the
-                TPU analog of the reference's ordered column tiling
+                analog of the reference's ordered column tiling
                 (reference: src/ops/tiling.h:222-284).
 
 Backward: dx = SpMM(A^T, dZ) uses the pre-sorted transpose edge list
@@ -121,6 +121,25 @@ def _seg_dispatch(src, dst, vals, x, n_out, scan: int):
 # --------------------------------------------------------------------------- #
 # row-split ELL kernels (see gala_tpu.data.ell for the layout + rationale)
 # --------------------------------------------------------------------------- #
+def slot_reduce(w, seg, out_dtype):
+    """out[v] = sum_k w[v, k] * seg[v, k, :], accumulated in f32.
+
+    On a GPU, a multiply and a reduce over the slot axis.  XLA:GPU would
+    lower the batched (v,k),(v,k,f) einsum to one matmul per bin shape
+    and autotune each while compiling, for a product a matmul unit
+    cannot speed up (one k-long dot per row).  Cold on an H100, the
+    card-only tests ran in 345 s this way and had not finished after
+    600 s with the einsum.  On the CPU, which autotunes
+    nothing, the einsum stays: the CPU tests that compare two summation
+    orders were set against its rounding."""
+    if jax.default_backend() == "gpu":
+        prod = w.astype(jnp.float32)[..., None] * seg.astype(jnp.float32)
+        return jnp.sum(prod, axis=1).astype(out_dtype)
+    return jnp.einsum(
+        "vk,vkf->vf", w, seg, preferred_element_type=jnp.float32
+    ).astype(out_dtype)
+
+
 def _ell_raw(cols, vals, vrow, x, n_out):
     """partial[v] = sum_k vals[v,k] * x[cols[v,k]]; scatter V rows only.
 
@@ -137,10 +156,7 @@ def _ell_raw(cols, vals, vrow, x, n_out):
     n_chunks = -(-v // rows)
     if n_chunks <= 1:
         gathered = x[cols]                               # (V, K, F) gather
-        partial = jnp.einsum(
-            "vk,vkf->vf", vals.astype(x.dtype), gathered,
-            preferred_element_type=jnp.float32,
-        ).astype(x.dtype)
+        partial = slot_reduce(vals.astype(x.dtype), gathered, x.dtype)
         return jax.ops.segment_sum(
             partial, vrow, num_segments=n_out, indices_are_sorted=True
         )
@@ -155,10 +171,7 @@ def _ell_raw(cols, vals, vrow, x, n_out):
 
     def body(acc, chunk):
         cols_c, vals_c, vrow_c = chunk
-        partial = jnp.einsum(
-            "vk,vkf->vf", vals_c.astype(x.dtype), x[cols_c],
-            preferred_element_type=jnp.float32,
-        ).astype(x.dtype)
+        partial = slot_reduce(vals_c.astype(x.dtype), x[cols_c], x.dtype)
         return acc.at[vrow_c].add(partial), 0
 
     acc0 = jnp.zeros((n_out, f), x.dtype)
@@ -247,41 +260,38 @@ _spmm_ev_ell.defvjp(_spmm_ev_ell_fwd, _spmm_ev_ell_bwd)
 # --------------------------------------------------------------------------- #
 # elements budget for one gathered (rows, k, F) intermediate: keeps live
 # buffers bounded on big graphs (a single flat (S, F) gather materializes
-# gigabytes at ogbn-products scale and OOMs the 16GB HBM).  Budgets count
-# PHYSICAL elements: XLA:TPU pads the minor dim to 128 lanes, so (S, 33)
-# occupies (S, 128) HBM (see ops/attention._phys_cols).
+# gigabytes at ogbn-products scale).  Budgets count columns padded to 128
+# lanes (_phys_cols); they are inherited constants, not yet measured on
+# the GPU.
 _BELL_CHUNK_ELEMS = 1 << 26
 _BELL_FLAT_ELEMS = 1 << 29
 # at/above this many chunks the unrolled barrier chain is replaced by a
-# rolled lax.scan (HLO size / remote-compile time dominates the lost
-# depth-2 pipeline overlap there)
+# rolled lax.scan (HLO size / compile time dominates the lost depth-2
+# pipeline overlap there)
 _SCAN_MIN_CHUNKS = 16
 
-# Gather-table packing: the measured XLA row-gather rate drops ~10x once
-# the table's PHYSICAL footprint (minor dim padded to 128 lanes) crosses
-# ~100 MB (docs/PERF_NOTES.md).  For narrow features (f <= 64) the
+# Gather-table packing: on the hardware this was first tuned for, the
+# XLA row-gather rate fell sharply once the table's footprint with its
+# minor dim padded to 128 lanes crossed ~100 MB (a "gather cliff").  For narrow features (f <= 64) the
 # padding wastes most of each row, so packing P = 128//f nodes per
 # physical row shrinks the table P-fold — same bytes per gathered row,
-# P-fold smaller working set — and a (v,k,P)-expanded weight einsum
-# selects each slot's lane window in one streaming pass.
+# P-fold smaller working set — and a (v,k,P)-expanded weight reduce
+# selects each slot's lane window in one streaming pass.  The threshold
+# is inherited and not yet measured on the GPU;
+# scripts/bench_packed_gather.py measures the crossover.
 _PACK_MIN_BYTES = int(__import__("os").environ.get(
     "GALA_PACK_MIN_BYTES", str(96 << 20)
 ))
-# Sub-cliff packing (GALA_PACK_MIN_BYTES below the default): the gather
-# rate is ROW-rate bound and flat in width <= 128 lanes (PERF_NOTES), so
-# packing narrow tables cuts gathered rows p-fold even before the cliff;
-# scripts/bench_packed_gather.py measures the crossover on chip.
 
-# Staged (two-level) gather: once the table's PHYSICAL footprint crosses
-# the gather cliff and node-packing cannot apply (f > 64), gather each
-# canonical chunk's UNIQUE rows from the big table (slow rate, few rows)
-# into a small staged table and distribute to slots with a fast
-# small-table gather.  Measured (scripts/bench_staged_gather.py, 627MB
-# bf16 table): plain 158M rows/s, staged 248-323M rows/s at unique
-# fractions 0.12-0.17; staging loses above ~0.55 unique fraction (the
-# layout builder skips the tables there).  The lax.optimization_barrier
-# around the staged table is what keeps XLA from folding the two
-# gathers back into one big-table gather.
+# Staged (two-level) gather: once the padded table crosses the gather
+# cliff and node-packing cannot apply (f > 64), gather each canonical
+# chunk's UNIQUE rows from the big table (few rows) into a small staged
+# table and distribute to slots with a small-table gather.  It loses at
+# high unique fractions (the layout builder skips the tables there);
+# scripts/bench_staged_gather.py measures it.  The thresholds are
+# inherited and not yet measured on the GPU.  The lax.optimization_barrier around the staged
+# table is what keeps XLA from folding the two gathers back into one
+# big-table gather.
 _STAGE_MIN_BYTES = 96 << 20
 _STAGE_MAX_PHYS = 256   # canonical chunks at f_phys 256 = 268MB buffers
 
@@ -308,7 +318,7 @@ def _pack_table(x, p):
 def _packed_chunk_reduce(cols_c, vals_c, xt, p, f, out_dtype):
     """One chunk of the packed-table reduce.  Every operand stays 2-D
     (or the proven (v,k,f) dot shape): 3-D small-minor-dim operands
-    tile-pad up to 64x on TPU and OOM at bin scale.
+    can tile-pad up to 64x and OOM at bin scale.
 
     cols_c: (rows, k) UNPACKED node ids; xt: packed (n/p, p*f) table."""
     rows, k = cols_c.shape
@@ -320,16 +330,13 @@ def _packed_chunk_reduce(cols_c, vals_c, xt, p, f, out_dtype):
         acc = acc + jnp.where(
             lane == c, jax.lax.slice_in_dim(seg2, c * f, (c + 1) * f, axis=1), 0
         )
-    return jnp.einsum(
-        "vk,vkf->vf", vals_c.astype(xt.dtype), acc.reshape(rows, k, f),
-        preferred_element_type=jnp.float32,
-    ).astype(out_dtype)
+    return slot_reduce(vals_c.astype(xt.dtype), acc.reshape(rows, k, f), out_dtype)
 
 
 def _bell_bin_reduce(cols_flat, vals, x, out_dtype, k, p=1, f=None, stage=None,
                      chunk_slots=0):
     """sum_k vals[v,k] * x[cols[v,k]] with the gather chunked to a
-    bounded intermediate; per-chunk gathers fuse into their einsum.
+    bounded intermediate; per-chunk gathers fuse into their reduce.
 
     cols_flat is the bin's 1-D slot-id slice — the (nb, k) view is taken
     PER CHUNK only: a bin-level 2-D reshape of a huge-nb/small-k index
@@ -351,9 +358,8 @@ def _bell_bin_reduce(cols_flat, vals, x, out_dtype, k, p=1, f=None, stage=None,
             # below.  The unrolled barrier chain does NOT bound liveness
             # once the reduce sits inside a training while-loop: XLA's
             # remat/compression scheduling kept every chunk's staged
-            # gather temp live at once (chip-measured: table5 Products-
-            # 0.25 cir needed 21.5G for 15.75G HBM — 109 chunks x
-            # ~200MB, the whole (S, f) slot-feature array).  A scan body
+            # gather temp live at once (the whole (S, f) slot-feature
+            # array at Products-0.25 scale).  A scan body
             # is its own memory barrier: one chunk's st/seg is live at a
             # time.  Ragged arrays are padded to uniform shapes host-
             # side cheap: uniq to the segment max (extra rows gather
@@ -378,19 +384,16 @@ def _bell_bin_reduce(cols_flat, vals, x, out_dtype, k, p=1, f=None, stage=None,
 
             # Software-pipelined scan: the carry holds chunk i's staged
             # table while the body gathers chunk i+1's — the stage-1
-            # uniq gather overlaps the stage-2 distribute + einsum of
+            # uniq gather overlaps the stage-2 distribute + reduce of
             # the previous chunk (the depth-2 overlap the unrolled
             # barrier chain had; a plain scan serializes the two-level
-            # gather and cost Products-0.25 GCN ~1.4x).  uniq rolls by
+            # gather).  uniq rolls by
             # one so iteration i carries uniq[i+1]; the final roll-around
             # gather of uniq[0] is dead work, one chunk in C.
             def body(st, chunk):
                 uniq_next, local_c, vals_c = chunk
                 seg = st[local_c.reshape(rows, k)]
-                o_c = jnp.einsum(
-                    "vk,vkf->vf", vals_c.astype(x.dtype), seg,
-                    preferred_element_type=jnp.float32,
-                ).astype(out_dtype)
+                o_c = slot_reduce(vals_c.astype(x.dtype), seg, out_dtype)
                 st_next = jax.lax.optimization_barrier(x[uniq_next])
                 return st_next, o_c
 
@@ -407,10 +410,7 @@ def _bell_bin_reduce(cols_flat, vals, x, out_dtype, k, p=1, f=None, stage=None,
             st = jax.lax.optimization_barrier(tab[uniq])
             seg = st[local.reshape(hi - lo, k)]
             vals_c = jax.lax.slice_in_dim(vals, lo, hi)
-            o_c = jnp.einsum(
-                "vk,vkf->vf", vals_c.astype(x.dtype), seg,
-                preferred_element_type=jnp.float32,
-            ).astype(out_dtype)
+            o_c = slot_reduce(vals_c.astype(x.dtype), seg, out_dtype)
             tabs[c % 2], o_c = jax.lax.optimization_barrier((tab, o_c))
             outs.append(o_c)
         return jnp.concatenate(outs, axis=0) if len(outs) > 1 else outs[0]
@@ -426,10 +426,7 @@ def _bell_bin_reduce(cols_flat, vals, x, out_dtype, k, p=1, f=None, stage=None,
         if p > 1:
             return _packed_chunk_reduce(cols_c, vals_c, tab, p, f, out_dtype)
         seg = tab[cols_c]
-        return jnp.einsum(
-            "vk,vkf->vf", vals_c.astype(x.dtype), seg,
-            preferred_element_type=jnp.float32,
-        ).astype(out_dtype)
+        return slot_reduce(vals_c.astype(x.dtype), seg, out_dtype)
 
     if n_chunks == 1:
         return chunk_reduce(x, cols_flat.reshape(nb, k), vals)
@@ -437,10 +434,10 @@ def _bell_bin_reduce(cols_flat, vals, x, out_dtype, k, p=1, f=None, stage=None,
         # Many chunks: a rolled lax.scan instead of the unrolled barrier
         # chain.  One chunk's gather temp is live at a time (the scan
         # body is its own memory barrier), the HLO stays O(1) in chunk
-        # count (unrolled many-chunk programs cost minutes of remote
-        # compile at papers100M scale), at the price of the depth-2
-        # adjacent-chunk overlap (measured 3-9% on fig18 cells — the
-        # rolled form only triggers where compile/HLO size dominates).
+        # count (unrolled many-chunk programs cost minutes of compile at
+        # papers100M scale), at the price of the depth-2 adjacent-chunk
+        # overlap (the rolled form only triggers where compile/HLO size
+        # dominates).
         nb_pad = n_chunks * rows_per_chunk
         cols2 = cols_flat
         vals2 = vals
@@ -502,37 +499,13 @@ def _bell_raw(bell, x, n_out_pad):
     f = x.shape[1]
     s_total = bell.flat_cols.shape[0]
     itemsize = jnp.dtype(x.dtype).itemsize
-    # fused Pallas path (plans built at graph load): block-DMA staging
-    # replaces the XLA gather entirely, so packing/staging don't apply.
-    # LIVE plans only: after the per-segment reuse gate every entry may
-    # be None (real community layouts measure reuse 0.13-0.19, r4), and
-    # the XLA fallback must then keep its own optimizations — packing,
-    # staged two-level gathers, the flat path.  Gating on the list's
-    # mere existence cost Products-0.25 GCN 1.7x (0.62s vs 0.37s epoch).
-    use_pallas = bell.pallas_plans is not None and any(
-        pn is not None for pn in bell.pallas_plans
-    )
-    xp_pallas = None
-    if use_pallas:
-        f_pad = ((f + 127) // 128) * 128
-        n_need = max(
-            (pn.n_need for pn in bell.pallas_plans if pn is not None),
-            default=0,
-        )
-        xp_pallas = x
-        if f_pad != f:
-            xp_pallas = jnp.pad(xp_pallas, ((0, 0), (0, f_pad - f)))
-        if n_need > xp_pallas.shape[0]:
-            xp_pallas = jnp.pad(
-                xp_pallas, ((0, n_need - xp_pallas.shape[0]), (0, 0))
-            )
-    p = 1 if use_pallas else _pack_factor(x.shape[0], f, itemsize)
+    p = _pack_factor(x.shape[0], f, itemsize)
     xt = _pack_table(x, p) if p > 1 else x
     # staged two-level gather: only for big unpackable tables (f > 64)
     # with enough per-chunk duplication to win (see _STAGE_MIN_BYTES)
     tab_bytes = x.shape[0] * _phys_cols(f) * itemsize
     use_stage = (
-        bell.stage is not None and p == 1 and not use_pallas
+        bell.stage is not None and p == 1
         and tab_bytes > _STAGE_MIN_BYTES
         and _phys_cols(f) <= _STAGE_MAX_PHYS
     )
@@ -542,32 +515,15 @@ def _bell_raw(bell, x, n_out_pad):
     # Packed mode always goes through the chunked reducer (its per-chunk
     # //p and %p keep every index intermediate chunk-sized).
     flat = (
-        p == 1 and not use_stage and not use_pallas and not bell.chunk_slots
+        p == 1 and not use_stage and not bell.chunk_slots
         and s_total * _phys_cols(f) <= _BELL_FLAT_ELEMS
     )
     gathered = x[bell.flat_cols] if flat else None
 
     def bin_reduce(off, nb, k, vals, seg_idx):
-        plan = bell.pallas_plans[seg_idx] if use_pallas else None
-        # a plan budgeted for a narrower feature width than the actual
-        # one would overflow its VMEM staging — fall back to XLA
-        if plan is not None and _phys_cols(f) <= plan.f_budget:
-            from gala_tpu.ops.pallas.bell_spmm import bell_spmm_planned
-
-            out = bell_spmm_planned(
-                plan, xp_pallas, vals,
-                # f32-exact MXU passes: chip-measured at no cost over
-                # the fast bf16 form (the kernel is VPU/one-hot bound)
-                precision=jax.lax.Precision.HIGHEST,
-                interpret=jax.default_backend() != "tpu",
-            )
-            return out[:, :f].astype(x.dtype)
         if flat:
             seg = jax.lax.slice_in_dim(gathered, off, off + nb * k).reshape(nb, k, f)
-            return jnp.einsum(
-                "vk,vkf->vf", vals.astype(x.dtype), seg,
-                preferred_element_type=jnp.float32,
-            ).astype(x.dtype)
+            return slot_reduce(vals.astype(x.dtype), seg, x.dtype)
         cols_flat = jax.lax.slice_in_dim(bell.flat_cols, off, off + nb * k)
         return _bell_bin_reduce(
             cols_flat, vals, xt, x.dtype, k, p=p, f=f,
@@ -629,14 +585,6 @@ def _bell_zeros_ct(b):
         stage=tuple(
             (_float0_like(u), _float0_like(l)) for u, l in b.stage
         ) if b.stage is not None else None,
-        pallas_plans=tuple(
-            _dc.replace(
-                pn,
-                blocks=_float0_like(pn.blocks),
-                locals_=_float0_like(pn.locals_),
-            ) if pn is not None else None
-            for pn in b.pallas_plans
-        ) if b.pallas_plans is not None else None,
     )
 
 
@@ -721,7 +669,7 @@ def _bell_slot_grads(bell, x, dz_bin):
             seg = x[cols].astype(jnp.float32)
             dzc = jax.lax.slice_in_dim(dz_rows, lo, hi).astype(jnp.float32)
             # multiply+reduce, not a batched-contraction einsum
-            # (Mosaic/MXU lowers those to tiny batched matmuls)
+            # (which lowers to tiny batched matmuls)
             outs.append(jnp.sum(seg * dzc[:, None, :], axis=-1).reshape(-1))
         return jnp.concatenate(outs) if len(outs) > 1 else outs[0]
 
@@ -798,7 +746,7 @@ def _sampled_ell(row_ptr, src, deg, k, ra, rb):
     neighbor (ra*j + rb) %% deg[r] — the reference's in-kernel LCG
     sampling formula (reference: src/codegen/cuda.h:313-320), realized as
     an index transform so the aggregation itself is a regular fixed-K
-    gather (an ELL, the shape TPUs want).  Fresh (ra, rb) per epoch gives
+    gather (an ELL).  Fresh (ra, rb) per epoch gives
     the `dynamic` mode (reference: src/codegen/common.h:822-833)."""
     n = row_ptr.shape[0] - 1
     d = deg[:, 0].astype(jnp.int32)
@@ -824,17 +772,11 @@ def _dyn_raw(row_ptr, src, deg, x, k, ra, rb, scale):
         cols, vals = _sampled_ell(
             jnp.concatenate([rp_c, rp_c[-1:]]), src, deg_c, k, ra, rb
         )
-        return jnp.einsum(
-            "vk,vkf->vf", (vals * scale).astype(x.dtype), x[cols],
-            preferred_element_type=jnp.float32,
-        ).astype(x.dtype)
+        return slot_reduce((vals * scale).astype(x.dtype), x[cols], x.dtype)
 
     if n_chunks <= 1:
         cols, vals = _sampled_ell(row_ptr, src, deg, k, ra, rb)
-        return jnp.einsum(
-            "vk,vkf->vf", (vals * scale).astype(x.dtype), x[cols],
-            preferred_element_type=jnp.float32,
-        ).astype(x.dtype)
+        return slot_reduce((vals * scale).astype(x.dtype), x[cols], x.dtype)
     pad = n_chunks * rows - n
     rp = row_ptr[:-1]
     dg = deg
@@ -888,9 +830,9 @@ _spmm_dyn.defvjp(_spmm_dyn_fwd, _spmm_dyn_bwd)
 # of a degree-d row by w(d, p) = #{i < k : (ra*i + rb) mod d == p}.  The
 # sampled aggregation is therefore the ORDINARY bell aggregation with
 # per-epoch computed slot weights: zero per-epoch index gathers (the
-# (ra*i+rb)-driven src[idx] gather of _dyn_raw reads 512B HBM lines for
-# 4 useful bytes — measured 16-19x over the full-graph bell path on
-# table7), and the staged/Pallas gather machinery applies unchanged.
+# (ra*i+rb)-driven src[idx] gather of _dyn_raw reads a whole memory
+# line for 4 useful bytes), and the packed/staged gathers apply
+# unchanged.
 def _dyn_counts(d, p, n_samples, ra, rb):
     """w = #{i < n_samples : (ra*i + rb) mod d == p} as f32, 0 where
     d <= 0 (pad slots / isolated rows)."""

@@ -11,7 +11,7 @@ level.  The reference has no distributed execution of any kind
 
 Sharding: nodes range-partitioned over the mesh's 'data' axis (features,
 labels, masks and destination rows co-located); remote source features
-arrive by all_gather or halo all_to_all over ICI; parameters are
+arrive by all_gather or halo all_to_all; parameters are
 replicated, their gradients psum'd by shard_map's transpose.
 
     import gala_tpu

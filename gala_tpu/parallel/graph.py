@@ -4,7 +4,7 @@ The distribution strategy (SURVEY.md §2.4): nodes are range-partitioned
 over the 'data' mesh axis; each device owns the edges whose *destination*
 falls in its node range (so the aggregation reduction is entirely local)
 plus the features of its own nodes.  Source features from other shards
-arrive via an all_gather over ICI inside shard_map — the cross-chip
+arrive via an all_gather inside shard_map — the cross-chip
 analog of the reference's ordered column tiling of the contraction
 dimension (reference: src/ops/tiling.h:222-284).
 
@@ -34,9 +34,8 @@ def _round_up(x: int, m: int) -> int:
 class ShardedBell:
     """Per-shard binned-ELL layouts with shard-uniform static structure.
 
-    The SPMD local reduce was a sorted segment_sum — measured at
-    95-130M rows/s on the v5e versus 200M+ for the scatter-free binned
-    reduce (docs/PERF_NOTES.md).  This carries one bell layout PER SHARD
+    The SPMD local reduce was a sorted segment_sum; this replaces it
+    with the scatter-free binned reduce.  This carries one bell layout PER SHARD
     over the per-shard [local rows | halo rows | phantom] feature table,
     stored stacked (leading dim divisible by n_shards) so shard_map's
     P('data') hands each device its own layout; the STATIC structure
@@ -98,7 +97,6 @@ class ShardedBell:
             diag=None,
             out_index=self.out_index,
             stage=None,
-            pallas_plans=None,
             bin_ks=self.bin_ks,
             bin_counts=self.bin_counts,
             n_big=self.n_big,
@@ -319,7 +317,7 @@ class ShardedGraph:
     deg: jax.Array        # (S*r, 1) f32 in-degrees
     # halo-exchange layout (comm-optimal path): instead of all_gathering
     # the full feature matrix, each shard sends only the boundary rows
-    # its peers actually reference (all_to_all over ICI).  Each shard's
+    # its peers actually reference (all_to_all).  Each shard's
     # edges are stored [local block | remote block]: edges whose source
     # this shard owns occupy slots [0, El) and never touch the exchange,
     # so XLA's latency-hiding scheduler overlaps the local partition's

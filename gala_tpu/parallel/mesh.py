@@ -2,7 +2,7 @@
 
 The reference has no multi-device execution at all (its Environment enum
 is aspirational — reference: src/codegen/common.h:22-29, every driver
-constructs SINGLE_NODE_SINGLE).  Scale-out here is TPU-native from the
+constructs SINGLE_NODE_SINGLE).  Scale-out here is built in from the
 start: a `jax.sharding.Mesh` with
 
     'data'  — node-partition axis (graph rows + features sharded; the
@@ -11,7 +11,7 @@ start: a `jax.sharding.Mesh` with
     'model' — feature/hidden-dimension axis (tensor parallelism for the
               FFN weights; optional, size 1 on small meshes)
 
-Collectives ride ICI: all_gather of node features for remote sources,
+XLA lowers the collectives to NCCL (NVLink within a host): all_gather of node features for remote sources,
 psum_scatter in the backward (inserted by differentiating shard_map),
 psum for replicated-parameter gradients.
 """

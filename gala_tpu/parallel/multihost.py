@@ -1,23 +1,19 @@
-"""Multi-host (DCN) initialization.
+"""Multi-host initialization.
 
-Single-host multi-chip needs nothing: `jax.devices()` sees all local
-chips and `make_mesh()` spans them over ICI.  Across hosts, JAX's
-distributed runtime must be initialized once per process before any
-device op; the global mesh then spans every host's chips and the same
-`shard_map` programs run unchanged — collectives ride ICI within a slice
-and DCN between slices.  (The reference is single-GPU only; its
-MULTI_NODE enum values are unused — reference: src/codegen/common.h:22-29.)
+Single-host multi-GPU needs nothing: `jax.devices()` sees all local
+cards and `make_mesh()` spans them (NVLink within a host).  Across
+hosts, JAX's distributed runtime must be initialized once per process
+before any device op; the global mesh then spans every host's cards and
+the same `shard_map` programs run unchanged — XLA hands the collectives
+to NCCL.  (The reference is single-GPU only; its MULTI_NODE enum values
+are unused — reference: src/codegen/common.h:22-29.)
 
-Typical pod-slice usage (TPU VMs auto-discover coordinates):
+Usage: one process per host (or per card), each told the coordinator:
 
     from gala_tpu.parallel.multihost import initialize
-    initialize()                      # before any jax op
-    mesh = make_mesh()                # spans the full slice
-
-Explicit coordinator form (GPU/CPU clusters):
-
     initialize(coordinator_address="10.0.0.1:8476",
-               num_processes=4, process_id=rank)
+               num_processes=4, process_id=rank)   # before any jax op
+    mesh = make_mesh()                             # spans every card
 """
 from __future__ import annotations
 
@@ -31,8 +27,8 @@ def initialize(
 ) -> int:
     """Initialize jax.distributed (idempotent); returns process count.
 
-    With no arguments, relies on the platform's auto-discovery (TPU
-    pod slices).  Safe to call in single-process runs: failures to
+    With no arguments JAX tries to discover a cluster from its
+    environment.  Safe to call in single-process runs: failures to
     discover a cluster leave the process standalone.
     """
     try:

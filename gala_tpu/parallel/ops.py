@@ -2,7 +2,7 @@
 
 Each function sees per-shard local arrays (shard_map has already split
 the ShardedGraph pytree along 'data').  Aggregation gathers remote source
-features with `all_gather` over ICI and reduces into local destination
+features with `all_gather` and reduces into local destination
 rows with a sorted segment sum; differentiating through shard_map turns
 the all_gather into a psum_scatter automatically, which is exactly the
 edge-partitioned backward.
@@ -20,7 +20,7 @@ def spmd_spmm(src, dst_local, vals, x_shard, rows_per_shard):
 
     x_shard: (r, F) local feature rows; src holds *global* ids.
     """
-    x_full = jax.lax.all_gather(x_shard, AXIS, tiled=True)  # (S*r, F) over ICI
+    x_full = jax.lax.all_gather(x_shard, AXIS, tiled=True)  # (S*r, F)
     msg = vals[:, None] * x_full[src]
     out = jax.ops.segment_sum(
         msg, dst_local, num_segments=rows_per_shard + 1, indices_are_sorted=False
@@ -31,7 +31,7 @@ def spmd_spmm(src, dst_local, vals, x_shard, rows_per_shard):
 def spmd_spmm_halo(src_halo, dst_local, vals, x_shard, send_idx,
                    rows_per_shard, n_shards, halo, edges_local):
     """out_shard = (A @ X) rows owned by this shard, exchanging only the
-    boundary rows peers reference (all_to_all over ICI) instead of
+    boundary rows peers reference (all_to_all) instead of
     all_gathering the full feature matrix.
 
     send_idx: (S, H) local rows this shard contributes to each peer;
@@ -72,7 +72,7 @@ def spmd_spmm_halo(src_halo, dst_local, vals, x_shard, send_idx,
 
 def _halo_table(g, rows):
     """The per-shard [local | halo | zero] gather table: send each
-    peer's boundary rows (all_to_all over ICI) and append the zero
+    peer's boundary rows (all_to_all) and append the zero
     phantom row the bell layouts index at n_tab.  Autodiff reverses the
     concat and the all_to_all, so halo-row gradients flow back to their
     owner shards."""
@@ -90,8 +90,7 @@ def spmd_spmm_bell(g, x_shard):
     """Scatter-free per-shard aggregation: the shard's binned-ELL
     layouts over the halo table run ops.spmm._spmm_bell — the same
     scatter-free custom-VJP reduce as single-chip (forward bins +
-    transpose layout backward), measured ~2x the sorted-segment-sum
-    scatter rate on the v5e (docs/PERF_NOTES.md)."""
+    transpose layout backward)."""
     from gala_tpu.ops.spmm import _spmm_bell
 
     tab = _halo_table(g, x_shard)

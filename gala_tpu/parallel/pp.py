@@ -7,13 +7,13 @@ microbatch stream to pipeline.  The stream DOES exist in the minibatch
 path (gala_tpu/train_minibatch.py): every epoch is a sequence of
 fixed-shape sampled neighborhoods, which is exactly GPipe's input shape.
 
-TPU-native design — no per-stage processes, no send/recv runtime:
+SPMD design — no per-stage processes, no send/recv runtime:
 
 - one `shard_map` over a ('pipe',) mesh; every device runs the SAME
   traced program (SPMD), so XLA compiles once;
 - the schedule is a `lax.scan` over T = n_micro + P - 1 ticks; each
   tick applies the local stage to its activation-in-flight, then one
-  `ppermute` ring-shifts activations to the next stage over ICI;
+  `ppermute` ring-shifts activations to the next stage;
 - activations are padded to one uniform (B, W) lane width so the
   in-flight buffer has a single static shape (XLA requirement);
 - the backward pass is jax.grad THROUGH the scan: ppermute's transpose

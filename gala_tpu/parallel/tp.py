@@ -14,7 +14,7 @@ cost divides by the model-axis size too.
 
 The reference has no distributed execution of any kind (reference:
 src/codegen/common.h:22-29 Environment enum, unused); this is the
-TPU-native scale-out the SURVEY §2.4 table calls for.
+scale-out the SURVEY §2.4 table calls for.
 
 The plan is a {weight_name: 'col' | 'row'} dict.  shard_compiled bakes
 it into the ShardedGraph pytree's STATIC aux data (`tp_plan`, a sorted

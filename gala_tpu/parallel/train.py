@@ -1,4 +1,4 @@
-"""Sharded full-graph training step (SPMD over a TPU mesh).
+"""Sharded full-graph training step (SPMD over a device mesh).
 
 Parallelism mapping for GNN training (SURVEY.md §2.4 — none of this
 exists in the reference, which is single-GPU only):
@@ -8,7 +8,7 @@ exists in the reference, which is single-GPU only):
                  live with their owner shard.
 - SP  (context): the same partition applied to the *edge/contraction*
                  dimension — each shard reduces its own incoming edges;
-                 remote source features arrive by all_gather over ICI
+                 remote source features arrive by all_gather
                  (backward: psum_scatter, inserted by autodiff).
 - TP  (model)  : FFN weights column-sharded on layer 1 / row-sharded on
                  layer 2 (Megatron pattern) over the 'model' axis with a
@@ -132,7 +132,7 @@ def make_sharded_train_step(mesh, sg: ShardedGraph, d_in, d_hidden, d_out,
     # closure over a device array is illegal in multi-process runs
     # (the global array spans non-addressable devices — caught by
     # tests/test_multihost.py) and embeds Reddit-scale constants in the
-    # lowered module in single-process ones (PERF_NOTES closure hazard)
+    # lowered module in single-process ones
     @jax.jit
     def _step(params, opt_state, g, x, y, mask):
         loss, grads = jax.value_and_grad(local_loss)(params, g, x, y, mask)

@@ -1,4 +1,4 @@
-"""Attention-fusion pass (TPU-specific, pass #5).
+"""Attention-fusion pass (added here, pass #5).
 
 Recognizes the edge-centric attention chain the frontend builds for GAT
 layers (reference: src/frontend/frontend.y addAttentionWeight_L/R,

@@ -14,16 +14,15 @@ smaller feature dimension:
 - enable_tim mode (training driver): never move an FFN earlier — a longer
   learned-op-free prefix maximizes what training-invariant code motion
   can hoist (reference: gala_train.cpp enables TIM-aware reordering).
-- TPU cost model (r5): even in default mode, an FFN never moves ahead
+- Hoisting cost model: even in default mode, an FFN never moves ahead
   of a PARAMETER-FREE chain.  A param-free prefix is hoistable — by the
   TIM pass in train mode, and by XLA's loop-invariant code motion
   inside the fused epoch scan at run time — so it costs ~0 per epoch;
   bubbling the FFN past it makes the chain param-dependent and turns a
-  free sweep into a per-epoch one (measured: table5 Reddit-0.25 `all`
-  ran two in-loop 32-wide sweeps at 0.41s forward while `cir` kept the
-  param-free 256-wide L1 sweep hoisted and ran one, 0.24s).  Moving
-  early is still the win when the chain already depends on parameters
-  (every layer past the first).
+  free sweep into a per-epoch one (two in-loop narrow sweeps instead
+  of one hoisted wide sweep).  Moving early is still the win when the
+  chain already depends on parameters (every layer past the first).
+  The model was tuned before the GPU port; not yet measured on the GPU.
 
 The rewiring swaps the two nodes' output DataNodes and re-threads inputs,
 exactly preserving dataflow for downstream consumers.
@@ -102,7 +101,7 @@ def operator_reordering(prog: Program, enable_tim: bool = False) -> Program:
             if w_out < w_in and not enable_tim:
                 # move earlier while the producer directly feeding us is a
                 # movable op — but never onto a param-free (hoistable)
-                # chain (TPU cost model, see module docstring)
+                # chain (hoisting cost model, see module docstring)
                 i = j - 1
                 if i >= 0:
                     prev = loop.nodes[i]

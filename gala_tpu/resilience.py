@@ -1,8 +1,8 @@
 """Failure recovery: restart-from-checkpoint training orchestration.
 
 The reference runs a fixed iteration count with no recovery surface at
-all (SURVEY.md §5).  Production TPU training needs to survive
-preemption, tunnel death, and host restarts, so this layer runs
+all (SURVEY.md §5).  Production training needs to survive
+preemption, device loss, and host restarts, so this layer runs
 training as a sequence of RESUMABLE SEGMENTS:
 
 - each segment is a normal `train()` call that ends with a checkpoint
@@ -14,9 +14,9 @@ training as a sequence of RESUMABLE SEGMENTS:
 
 Segmenting lives OUTSIDE `train()` on purpose: the timed epoch loop is
 dispatch-fused (one lax.scan per validation interval) and a mid-loop
-host-side save would both break the timing protocol and starve the
-in-order stream (docs/PERF_NOTES.md).  A segment boundary is the
-natural checkpoint point — the same place validation already fences.
+host-side save would both break the timing protocol and stall the
+device stream.  A segment boundary is the natural checkpoint point —
+the same place validation already waits.
 """
 from __future__ import annotations
 

@@ -1,11 +1,10 @@
 """Profiling markers — the LIKWID-wrapper analog (reference:
 src/utils/profiling.h:1-81, compile-time-gated marker macros).
 
-On TPU the equivalents are the XLA profiler trace (viewable in
-TensorBoard / xprof) plus named trace annotations.  Everything is
-no-op-safe when profiling is unavailable (e.g. tunneled platforms
-without a profiler backend), matching the reference's no-op default
-when LIKWID_PERFMON is off.
+Here the equivalents are the XLA profiler trace (viewable in
+TensorBoard / xprof / Perfetto) plus named trace annotations.
+Everything is no-op-safe when profiling is unavailable, matching the
+reference's no-op default when LIKWID_PERFMON is off.
 """
 from __future__ import annotations
 

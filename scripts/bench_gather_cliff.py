@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Measure the row-gather rate cliff vs PHYSICAL table size.
 
-Hypothesis: the ~10x gather slowdown on 'slot-sized' tables
-(docs/PERF_NOTES.md) is driven by the table's physical footprint
+Hypothesis: the gather slowdown on 'slot-sized' tables (seen where
+the executors were first tuned) is driven by the table's physical footprint
 (128-lane padded), so (a) bf16 and (b) packing P nodes per physical row
 should recover the fast rate for node tables like ogbn-products
 (612k x 32 f32 = 313 MB physical).

@@ -1,10 +1,10 @@
 #!/usr/bin/env python
 """Staged-gather designs vs the big-table gather cliff.
 
-The measured cliff (docs/PERF_NOTES.md): XLA row gather runs ~410-450M
-rows/s from tables whose PHYSICAL footprint is <~90MB, but only
-43-90M rows/s beyond — consistent with XLA keeping small tables
-VMEM-resident and falling back to per-row DMA for big ones.
+The cliff this tests for: XLA row gathers from tables whose padded
+footprint is <~90MB ran several times faster per row than from bigger
+tables where the executors were first tuned (not yet measured on the
+GPU).
 
 Designs tested here (all pure XLA, staged through
 `lax.optimization_barrier` so the staging materializes instead of

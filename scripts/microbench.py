@@ -1,8 +1,8 @@
-"""Microbenchmarks for aggregation-strategy selection on the real chip.
+"""Microbenchmarks for aggregation-strategy selection on the accelerator.
 
 Measures the primitive rates that drive the ELL cost model
-(gala_tpu/data/ell.py) and validates Pallas kernel candidates against
-the XLA gather/scatter paths before they are wired into ops/spmm.py.
+(gala_tpu/data/ell.py): XLA row gathers, sorted segment-sum scatters,
+the fused ELL forward and a one-hot matmul gather.
 
 Run:  python scripts/microbench.py [--n 262144] [--m 2097152] [--f 128]
 """
@@ -72,7 +72,7 @@ def main():
         t = timeit(jax.jit(ell), x, cols2, vals2, vrow)
         print(f"[{name}] xla ell e2e       : {m/t/1e6:8.1f} Medges/s")
 
-        # 4. one-hot matmul gather (MXU) for a VMEM-resident segment
+        # 4. one-hot matmul gather for a small resident segment
         seg = 4096
         xs = x[:seg]
         idx_s = idx % seg
@@ -83,22 +83,6 @@ def main():
 
         t = timeit(jax.jit(onehot_gather), xs, idx_s[:65536])
         print(f"[{name}] onehot mm (64k of 4k seg): {65536/t/1e6:8.1f} Mrows/s")
-
-    # 5. Pallas DMA-per-row gather
-    try:
-        from gala_tpu.ops.pallas.gather import gather_rows
-
-        for dt, name in [(jnp.float32, "f32"), (jnp.bfloat16, "bf16")]:
-            x = jnp.asarray(rng.standard_normal((n, f)), dtype=dt)
-            bpr = f * x.dtype.itemsize
-            t = timeit(jax.jit(gather_rows), x, idx)
-            out = gather_rows(x, idx)
-            ref = x[idx]
-            err = jnp.max(jnp.abs(out.astype(jnp.float32) - ref.astype(jnp.float32)))
-            print(f"[{name}] pallas dma gather : {m/t/1e6:8.1f} Mrows/s "
-                  f"{m*bpr/t/1e9:7.1f} GB/s  maxerr={err}")
-    except Exception as e:
-        print("pallas gather unavailable:", e)
 
 
 if __name__ == "__main__":

@@ -3,14 +3,14 @@
 
 The reference's `fig_parser.py` consumes its `stat_*.csv` files into
 figures; here the same CSVs (scripts/evaluate.py jobs) become the
-RESULTS.md summary tables.  RESULTS.md is GENERATED, not hand-edited:
-rounds 3 and 4 both shipped a RESULTS.md that lagged the newest CSVs
-(VERDICT r3/r4), so this script is now the single source — it merges
-every `--indirs` directory in order (later directories supersede
-earlier per config key, and within a file the harness appends so the
-last row per key wins) and rewrites the whole document.
+RESULTS.md summary tables.  RESULTS.md is GENERATED, not hand-edited,
+so it never lags the newest CSVs: this script merges every `--indirs`
+directory in order (later directories supersede earlier per config
+key, and within a file the harness appends so the last row per key
+wins) and rewrites the whole document.  Feed it only rows measured on
+the GPU; every row's device comes from the run that produced it.
 
-Usage: python scripts/report.py --indirs results_r3 results_r4 results_r5
+Usage: python scripts/report.py --indirs results
 """
 from __future__ import annotations
 
@@ -117,9 +117,6 @@ SECTIONS = [
      {2: "%.4f", 3: "%.4f"}),
     ("stat_table7.csv", "Table 7 — sampling modes (time + accuracy)",
      {2: "%.4f", 3: "%.3f"}),
-    ("stat_baseline_flax.csv",
-     "Ecosystem baseline — stock flax.linen + segment_sum",
-     {3: "%.4f", 4: "%.4f"}),
     ("stat_scaling.csv", "Multi-chip scaling harness (virtual CPU mesh)",
      {3: "%.4f", 4: "%.3f"}),
     ("stat_papers_multichip.csv",
@@ -129,38 +126,21 @@ SECTIONS = [
 NOTES = {
     "stat_fig16.csv": (
         "Accuracy column: synthetic stand-in data (planted homophilous\n"
-        "communities) unless the row says `data=real`.  `_noauto` rows\n"
-        "run with `GALA_PALLAS_AUTO=0` (diagnosis variants)."),
+        "communities) unless the row says `data=real`."),
     "stat_table5.csv": (
         "`dir` runs under `GALA_FORCE_COL_TILE=1` (the compiler's budget\n"
         "gate otherwise drops hand chunking as a measured loss); `all`\n"
         "reports what a user's all-optimizations schedule actually\n"
-        "executes (gate active), so all ~= cir on TPU by design."),
+        "executes (gate active), so all ~= cir by design."),
     "stat_scaling.csv": (
         "HARNESS-ONLY numbers: virtual CPU mesh (one host), measuring\n"
         "that the sharded step compiles/executes and how the collective\n"
-        "pattern scales the partitioned work — NOT ICI performance.\n"
-        "Only real-chip rows are publishable as TPU scaling."),
+        "pattern scales the partitioned work — NOT interconnect\n"
+        "performance.  Only GPU rows are publishable as scaling."),
     "stat_papers_multichip.csv": (
         "Papers100M node-partitioned over an 8-device mesh\n"
         "(scripts/dryrun_papers_multichip.py; virtual CPU mesh —\n"
-        "epoch_s_cpu_harness is a harness number, not TPU time).\n"
-        "0.02 trains with a finite loss.  The 0.05 config — the one a\n"
-        "single v5e cannot hold (runtime ResourceExhausted 26.09G of\n"
-        "15.75G, results_r5/papers005.txt) — shards and COMPILES, but\n"
-        "its execution exceeds the 125G EMULATING HOST (OOM-killed at\n"
-        "~130G RSS at 8 AND 4 devices, results_r5/papers_multichip*),\n"
-        "because one host must hold every shard's halo+temps at once\n"
-        "with XLA:CPU widening bf16 to f32; the implied per-REAL-chip\n"
-        "footprint, 130G / 8 shards / 2 (bf16), is ~8.1G < 15.75G HBM —\n"
-        "the config fits an actual 8-chip mesh, which this image does\n"
-        "not have."),
-    "stat_baseline_flax.csv": (
-        "Stock flax.linen + jax.ops.segment_sum GNNs on the same graphs\n"
-        "and timing protocol (scripts/baseline_flax.py).  `oom` = the\n"
-        "stock path exceeds one v5e's 15.75G HBM (Reddit-0.25 layer-1\n"
-        "messages are 27.4M x 256 f32 = 26.1G; bf16 GAT dies on the\n"
-        "autodiff residuals)."),
+        "epoch_s_cpu_harness is a harness number, not device time)."),
 }
 
 
@@ -168,26 +148,23 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--indirs", nargs="+", default=None,
                     help="result dirs in chronological order (later "
-                         "supersedes); default: results_r3..r5")
+                         "supersedes); default: results")
     ap.add_argument("--out", default="RESULTS.md")
     args = ap.parse_args()
-    indirs = args.indirs or [
-        d for d in ("results_r3", "results_r4", "results_r5")
-        if os.path.isdir(d)
-    ]
+    indirs = args.indirs or [d for d in ("results",) if os.path.isdir(d)]
 
     parts = [
-        "# Results — TPU v5e (single chip), fetch-fenced per-epoch means\n",
+        "# Results — per-epoch means, timed with block_until_ready\n",
         "GENERATED by `scripts/report.py` from "
         + ", ".join(f"`{d}/`" for d in indirs)
         + " (newest row per config wins). Do not hand-edit.\n",
-        "Produced by `scripts/evaluate.py` jobs on the real chip; datasets\n"
+        "Produced by `scripts/evaluate.py` jobs on the GPU; datasets\n"
         "are registry-shaped synthetic stand-ins unless a `--data-root`\n"
         "with real npy exports was given (this image has no egress).\n"
         "Schema and protocol match the reference's evaluation harness\n"
         "(reference: scripts/Evaluations/*.py; 5-epoch warmup skipped,\n"
-        "mean seconds/epoch).  Graph scales: Cora/Pubmed/Arxiv/CoraFull\n"
-        "at full registry shape; Reddit and Products at 0.25 of theirs;\n"
+        "mean seconds/epoch).  Graph scales: as each row's dataset\n"
+        "column and the evaluate.py job name them;\n"
         "Papers100M by sampled fraction as in the reference's Table 6.\n"
         "f32 activations unless noted (bench.py reports the bf16 fast\n"
         "path).\n",

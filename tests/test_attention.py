@@ -8,6 +8,7 @@ import pytest
 from gala_tpu.data.csr import coo_to_csr, densify
 from gala_tpu.ops.attention import attention_aggregate
 from gala_tpu.ops.graph import Graph
+from tests.test_parser import example_spec
 
 pytestmark = pytest.mark.slow  # compile-heavy: excluded from the fast tier
 
@@ -67,20 +68,18 @@ def test_fused_attention_forward_and_grads(attn_graph):
 
 
 def test_attention_fusion_pass_golden():
-    from gala_tpu.dsl.parser import parse_source
     from gala_tpu.ir.build import generate_ir
     from gala_tpu.ir.compute_ir import ComputeOp
     from gala_tpu.passes.pipeline import run_passes
 
-    src = open("/root/reference/tests/GALA-DSL/gat/Cora/a100.txt").read()
-    spec = parse_source(src)
+    spec = example_spec("gat")
     prog = run_passes(generate_ir(spec), spec, mode="train")
     ops = [n.op for n in prog.loop.nodes]
     assert ops.count(ComputeOp.FUSED_ATTENTION) == 2  # one per GAT layer
     assert ComputeOp.SOFTMAX not in ops
     assert ComputeOp.AGGREGATE_EDGE_SUM not in ops
 
-    spec2 = parse_source(src)
+    spec2 = example_spec("gat")
     spec2.passes.attention_fusion = False
     prog2 = run_passes(generate_ir(spec2), spec2, mode="train")
     ops2 = [n.op for n in prog2.loop.nodes]
@@ -91,14 +90,12 @@ def test_attention_fusion_pass_golden():
 def test_gat_fused_vs_unfused_end_to_end(small_dataset):
     """Same DSL program, fused (bell) vs unfused (ell) lowering: identical
     forward logits and training behavior."""
-    from gala_tpu.dsl.parser import parse_source
     from gala_tpu.lowering.lower import lower
 
-    src = open("/root/reference/tests/GALA-DSL/gat/Cora/a100.txt").read()
     data = small_dataset
 
-    cm1 = lower(parse_source(src), mode="inference", data=data, strategy="bell")
-    spec2 = parse_source(src)
+    cm1 = lower(example_spec("gat"), mode="inference", data=data, strategy="bell")
+    spec2 = example_spec("gat")
     spec2.passes.attention_fusion = False
     cm2 = lower(spec2, mode="inference", data=data, strategy="ell")
 
@@ -258,70 +255,12 @@ def test_multihead_attention_vs_dense_reference(attn_graph, monkeypatch):
             )
 
 
-def test_pallas_attention_forward_matches(attn_graph, monkeypatch):
-    """AttnBell built with use_pallas: bin segments run the fused Pallas
-    kernels — forward, backward pass-1 (stats on the fwd layout), and
-    backward pass-2 (slot grads on the transpose layout) — in interpret
-    mode off-TPU; output and grads match the plain path.  Multi-head
-    included; hub segments run the kernels too (per-virtual-row partials
-    merged by segment ops — the attn_graph hub node covers all three
-    hub paths)."""
-    import gala_tpu.ops.attention as A
-    import gala_tpu.ops.pallas.bell_spmm as pb
-    from gala_tpu.ops.attention import AttnBell
-
-    g_host, g = attn_graph
-    # force plans live on the tiny fixture: size floor, break-even reuse
-    # gate, and rows-per-chunk floor all bypassed (production gates are
-    # covered by test_pallas_lowering's gate tests)
-    monkeypatch.setattr(pb, "_MIN_PLAN_SLOTS", 0)
-    monkeypatch.setenv("GALA_PALLAS_REUSE_MIN", "0")
-    monkeypatch.setattr(pb, "_MIN_R", 8)
-    ab_p = AttnBell.from_host(g_host, g.n_pad, g.c_pad, use_pallas=True)
-    assert ab_p.fwd.pallas_plans is not None
-    assert any(p is not None for p in ab_p.fwd.pallas_plans)
-    assert ab_p.t.pallas_plans is not None
-    assert any(p is not None for p in ab_p.t.pallas_plans)
-    assert ab_p.fwd.n_big, "fixture must contain a hub node"
-    assert ab_p.fwd.pallas_plans[-1] is not None  # hub planned too
-
-    rng = np.random.default_rng(9)
-    for nh in (1, 4):
-        x = jnp.asarray(rng.standard_normal((g.c_pad, 16)).astype(np.float32))
-        vl = jnp.asarray(rng.standard_normal((g.c_pad, nh)).astype(np.float32))
-        vr = jnp.asarray(rng.standard_normal((g.n_pad, nh)).astype(np.float32))
-        dout = jnp.asarray(
-            rng.standard_normal((g.n_pad, 16)).astype(np.float32)
-        )
-
-        def loss(ab, x, vl, vr):
-            out = attention_aggregate(g.n_pad, g.c_pad, SLOPE, ab, x, vl, vr)
-            return jnp.sum(out * dout), out
-
-        (l0, out0), g0 = jax.value_and_grad(
-            lambda *a: loss(g.attn, *a), argnums=(0, 1, 2), has_aux=True
-        )(x, vl, vr)
-        assert not A._is_flat(ab_p, 16, nh)
-        (l1, out1), g1 = jax.value_and_grad(
-            lambda *a: loss(ab_p, *a), argnums=(0, 1, 2), has_aux=True
-        )(x, vl, vr)
-        np.testing.assert_allclose(
-            np.asarray(out1), np.asarray(out0), rtol=2e-5, atol=2e-5
-        )
-        for a0, a1 in zip(g0, g1):
-            np.testing.assert_allclose(
-                np.asarray(a1), np.asarray(a0), rtol=2e-4, atol=2e-5
-            )
-
-
-def test_hub_only_graph_attention(monkeypatch):
+def test_hub_only_graph_attention():
     """A graph where EVERY node is a hub (deg > 128): no bin segments at
-    all — the layout is one hub block, and under use_pallas the whole
-    fused path (fwd normalize=False merge + both backward passes) runs
-    through the hub branches exclusively."""
-    import gala_tpu.ops.pallas.bell_spmm as pb
+    all — the layout is one hub block, and the whole fused path (online
+    softmax forward + both backward passes) runs through the hub
+    branches exclusively."""
     from gala_tpu.data.csr import coo_to_csr, densify
-    from gala_tpu.ops.attention import AttnBell
 
     rng = np.random.default_rng(3)
     n = 300
@@ -332,14 +271,10 @@ def test_hub_only_graph_attention(monkeypatch):
     g_host = coo_to_csr(src, dst, None, n_rows=n)    # softmax slots
     assert np.diff(g_host.row_ptr).min() > 128
 
-    monkeypatch.setattr(pb, "_MIN_PLAN_SLOTS", 0)
-    monkeypatch.setenv("GALA_PALLAS_REUSE_MIN", "0")
-    monkeypatch.setattr(pb, "_MIN_R", 8)
     g = Graph.from_host(g_host, strategy="bell", attention=True,
                         keep_edges=True)
-    ab_p = AttnBell.from_host(g_host, g.n_pad, g.c_pad, use_pallas=True)
+    ab_p = g.attn
     assert not ab_p.fwd.bin_ks and ab_p.fwd.n_big == n
-    assert ab_p.fwd.pallas_plans[-1] is not None
 
     a = jnp.asarray(densify(g_host))
     x = jnp.asarray(rng.standard_normal((g.c_pad, 16)).astype(np.float32))

@@ -1,4 +1,5 @@
 """Driver CLI smoke tests (the five reference executables as subcommands)."""
+import os
 import subprocess
 import sys
 
@@ -6,6 +7,8 @@ import numpy as np
 import pytest
 
 pytestmark = pytest.mark.slow  # compile-heavy: excluded from the fast tier
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 GCN = """
 G = load_dataset("TinyCli");
@@ -45,11 +48,12 @@ def test_cli_csv_contract(driver, n_fields, tmp_path):
         [sys.executable, "-m", "gala_tpu", driver, str(dsl),
          "--iters", "8", "--scale", "1.0"],
         capture_output=True, text=True, timeout=560,
-        env={"JAX_PLATFORMS": "", "JAX_PLATFORM_NAME": "cpu",
-             "PATH": "/usr/bin:/bin:/usr/local/bin",
+        env={"JAX_PLATFORMS": "cpu",
+             "PATH": os.environ.get("PATH", "/usr/bin:/bin"),
              "XLA_FLAGS": "--xla_force_host_platform_device_count=2",
-             "HOME": "/root", "GALA_TPU_NO_COMPILE_CACHE": "1"},
-        cwd="/root/repo",
+             "HOME": str(tmp_path),
+             "JAX_COMPILATION_CACHE_DIR": str(tmp_path / "jax_cache")},
+        cwd=REPO,
     )
     assert out.returncode == 0, out.stderr[-2000:]
     line = out.stdout.strip().splitlines()[-1]
@@ -62,7 +66,7 @@ def test_examples_compile_and_train(example):
     """The shipped examples/ programs run end-to-end."""
     import gala_tpu
 
-    path = f"/root/repo/examples/{example}.txt"
+    path = os.path.join(REPO, "examples", f"{example}.txt")
     cm = gala_tpu.compile_source(open(path).read(), mode="train", scale=0.01)
     res = cm.train(iters=6)
     assert np.isfinite(res.total_time)

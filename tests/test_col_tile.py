@@ -101,7 +101,7 @@ def test_col_tile_attention_parity(small_dataset, monkeypatch):
 def test_dsl_col_tile_reaches_executor(small_dataset, strategy, monkeypatch):
     """Golden-path test: the DSL directive flows parser -> spec -> IR
     transform edge -> lower -> executed Graph chunking.  Forced past
-    the TPU memory gate (the toy graph is far below budget, where the
+    the memory gate (the toy graph is far below budget, where the
     gate would drop the directive — tested separately below)."""
     from gala_tpu.dsl.parser import parse_source
     from gala_tpu.ir.build import generate_ir
@@ -133,8 +133,8 @@ def test_dsl_col_tile_reaches_executor(small_dataset, strategy, monkeypatch):
 
 def test_col_tile_memory_gate_drops_below_budget(small_dataset):
     """Hand-written col_tile below the executor's flat-intermediate
-    budget is DROPPED at lowering (measured loss on TPU — stat_table5
-    dir 1.36s vs none 0.78s); the ablation force flag is tested above."""
+    budget is DROPPED at lowering (chunking there only costs time); the
+    ablation force flag is tested above."""
     from gala_tpu.dsl.parser import parse_source
     from gala_tpu.lowering.lower import lower
     from tests.test_parser import GCN_SRC

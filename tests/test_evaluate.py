@@ -23,7 +23,7 @@ def _args(tmp_path, **kw):
     base = dict(
         iters=6, scale=0.02, datasets=["Cora"], models=["gcn"],
         fractions=[0.01], layers=[2], hidden=[8],
-        outdir=str(tmp_path), platform=None,
+        outdir=str(tmp_path),
         t6_dataset="Cora", jnp_dtype=None, data_root=None,
     )
     base.update(kw)

@@ -44,9 +44,9 @@ res = m1.eval();
 def artifact(tmp_path_factory):
     cm = gala_tpu.compile_source(GCN, mode="train", scale=0.3)
     d = str(tmp_path_factory.mktemp("exported"))
-    # cpu+tpu: the export itself pins that the training step lowers for
-    # TPU device-lessly (same pipeline as tests/test_pallas_lowering.py)
-    export_compiled(cm, d, platforms=("cpu", "tpu"))
+    # cpu+cuda: the export itself pins that the training step lowers for
+    # the GPU device-lessly
+    export_compiled(cm, d, platforms=("cpu", "cuda"))
     return cm, d
 
 
@@ -165,25 +165,8 @@ def test_gat_export_roundtrip(tmp_path):
     backward pass is resolved at trace time)."""
     cm = gala_tpu.compile_source(GAT, mode="train", scale=0.3)
     d = str(tmp_path / "gat")
-    export_compiled(cm, d, platforms=("cpu", "tpu"))
+    export_compiled(cm, d, platforms=("cpu", "cuda"))
     em = load_exported(d)
     res = em.train(iters=25)
     assert res.max_accuracy > 0.6, res.max_accuracy
     assert np.isfinite(res.losses).all()
-
-
-def test_pallas_bell_export_lowers_tpu_only(tmp_path):
-    """pallas_bell programs export for the TPU platform device-lessly —
-    Mosaic custom calls serialize inside the StableHLO artifact (same
-    lowering pipeline tests/test_pallas_lowering.py pins)."""
-    cm = gala_tpu.compile_source(
-        GCN, mode="train", scale=0.3, strategy="pallas_bell"
-    )
-    d = str(tmp_path / "pbell")
-    export_compiled(cm, d, platforms=("tpu",))
-    em = load_exported(d)
-    assert em.manifest["platforms"] == ["tpu"]
-    # CPU cannot run a TPU-only artifact; calling it must raise, not
-    # silently fall back
-    with pytest.raises(Exception):
-        em.forward()

@@ -3,21 +3,12 @@ numerically and train to accuracy (compiler-vs-oracle equivalence)."""
 import numpy as np
 import pytest
 
-from gala_tpu.dsl.parser import parse_file, parse_source
 from gala_tpu.lowering.lower import lower
-from tests.test_parser import GCN_SRC
-
-REF_DSL = "/root/reference/tests/GALA-DSL"
+from tests.test_parser import GCN_SRC, example_spec
 
 
 def _spec(model="gcn"):
-    import os
-
-    path = f"{REF_DSL}/{model}/Reddit/a100.txt"
-    if os.path.exists(path):
-        spec = parse_file(path)
-    else:
-        spec = parse_source(GCN_SRC)
+    spec = example_spec(model)
     spec.graph.feat_size = 24
     spec.graph.label_size = 5
     spec.output_sizes = [16, 5]

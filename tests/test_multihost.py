@@ -1,9 +1,9 @@
-"""Multi-process (DCN) validation: 2 jax.distributed processes, one
+"""Multi-process validation: 2 jax.distributed processes, one
 global mesh, one sharded training run.
 
 The reference has no distributed execution of any kind (SURVEY.md §2.4;
 its Environment enum is aspirational).  BASELINE.md names multi-host
-scaling as a new capability, so the DCN entry point gets a real test:
+scaling as a new capability, so the multi-host entry point gets a real test:
 two OS processes (2 virtual CPU devices each) join through
 parallel.multihost.initialize, build the global 4-device mesh, and run
 the standard sharded GCN step.  Asserts: the cluster actually formed
@@ -11,9 +11,8 @@ the standard sharded GCN step.  Asserts: the cluster actually formed
 loss is IDENTICAL across processes — the psum/all_gather collectives
 crossed the process boundary.
 
-On real hardware the same worker runs unchanged per TPU host (auto
-coordinator discovery); this test is the harness-level proof awaiting
-chips.
+On real hardware the same worker runs unchanged per GPU host, given
+the coordinator address; this test is the harness-level proof.
 """
 import json
 import os

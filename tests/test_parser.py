@@ -3,12 +3,24 @@
 The op-sequence expectations mirror what the reference's bison actions
 produce for each model family (reference: src/frontend/frontend.y:84-280).
 """
+import glob
+import os
 import textwrap
 
 import pytest
 
-from gala_tpu.dsl.parser import parse_source
+from gala_tpu.dsl.parser import parse_file, parse_source
 from gala_tpu.dsl.spec import LayerOp
+
+EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(__file__)), "examples")
+
+
+def example_spec(model: str):
+    """The shipped examples/<model>.txt program, single-head like the
+    reference corpus programs (examples/gat.txt schedules 4 heads)."""
+    spec = parse_file(os.path.join(EXAMPLES, f"{model}.txt"))
+    spec.attention_heads = 1
+    return spec
 
 GCN_SRC = textwrap.dedent("""
     G = load_dataset("Reddit");
@@ -116,14 +128,9 @@ def test_sage_expansion():
 
 
 def test_full_reference_corpus_parses():
-    import glob
-    import os
-
-    corpus = "/root/reference/tests/GALA-DSL"
-    if not os.path.isdir(corpus):
-        pytest.skip("reference corpus not available")
-    files = glob.glob(corpus + "/**/*.txt", recursive=True)
-    assert len(files) > 100
+    """Every shipped DSL program (examples/) parses."""
+    files = glob.glob(EXAMPLES + "/*.txt")
+    assert len(files) >= 4
     for f in files:
         with open(f) as fh:
             spec = parse_source(fh.read())
@@ -132,20 +139,15 @@ def test_full_reference_corpus_parses():
 
 
 def test_full_reference_corpus_compiles_through_passes():
-    """Every reference DSL program must survive generate_ir + the full
-    pass pipeline in both driver modes (compile-level parity, beyond
-    parse-level)."""
-    import glob
-    import os
-
+    """Every shipped DSL program (examples/) must survive generate_ir +
+    the full pass pipeline in both driver modes (compile-level parity,
+    beyond parse-level)."""
     from gala_tpu.ir.build import generate_ir
     from gala_tpu.ir.compute_ir import ComputeOp
     from gala_tpu.passes.pipeline import run_passes
 
-    corpus = "/root/reference/tests/GALA-DSL"
-    if not os.path.isdir(corpus):
-        pytest.skip("reference corpus not available")
-    files = sorted(glob.glob(corpus + "/**/*.txt", recursive=True))
+    files = sorted(glob.glob(EXAMPLES + "/*.txt"))
+    assert len(files) >= 4
     agg_ops = {
         ComputeOp.AGGREGATE_MUL_SUM,
         ComputeOp.FUSED_ATTENTION,

@@ -35,7 +35,7 @@ def test_reorder_moves_shrinking_ffn_before_aggregate():
     ops = _ops(prog.loop.nodes)
     # layer-1: the aggregation chain is PARAM-FREE (hoistable by TIM /
     # XLA loop-invariant motion), so the shrinking FFN does NOT bubble
-    # past it (r5 TPU cost model — see passes/reorder.py docstring)
+    # past it (hoisting cost model — see passes/reorder.py docstring)
     i_ffn1 = ops.index(ComputeOp.FFN)
     i_agg1 = ops.index(ComputeOp.AGGREGATE_MUL_SUM)
     assert i_agg1 < i_ffn1

@@ -276,11 +276,11 @@ def test_spmd_bell_edge_values_unfused_gat_grads():
     """Unfused GAT (softmax chain -> spmm_ev with LEARNED edge values):
     the ev-bell path's d_evals sweep (per-slot SDDMM grads gathered back
     through slot_of_edge) matches the segment-based halo SPMD path."""
-    from gala_tpu.dsl.parser import parse_source
+    from tests.test_parser import example_spec
     from gala_tpu.lowering.lower import lower
 
-    src = open("/root/reference/tests/GALA-DSL/gat/Cora/a100.txt").read()
-    spec = parse_source(src)
+    spec = example_spec("gat")
+    spec.dataset = "Cora"
     spec.passes.attention_fusion = False
     cm = lower(spec, mode="train", strategy="segment", scale=1.0)
     params = cm.make_params(0)
@@ -313,13 +313,13 @@ def test_spmd_bell_ev_grads_scan_rolled(monkeypatch):
     halo path — covers the rolled d_evals SDDMM sweep the same way
     test_staged_gather covers the rolled staged forward."""
     import gala_tpu.ops.spmm as S
-    from gala_tpu.dsl.parser import parse_source
+    from tests.test_parser import example_spec
     from gala_tpu.lowering.lower import lower
 
     monkeypatch.setattr(S, "_BELL_CHUNK_ELEMS", 1 << 12)
     monkeypatch.setattr(S, "_SCAN_MIN_CHUNKS", 2)
-    src = open("/root/reference/tests/GALA-DSL/gat/Cora/a100.txt").read()
-    spec = parse_source(src)
+    spec = example_spec("gat")
+    spec.dataset = "Cora"
     spec.passes.attention_fusion = False
     cm = lower(spec, mode="train", strategy="segment", scale=1.0)
     params = cm.make_params(0)
